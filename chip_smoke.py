@@ -7,31 +7,48 @@
 Phases (each one fails the run on a mismatch, with a nonzero exit):
 
 1. Environment and build: the card's name and power limit, the torch and
-   CUDA versions; builds the kernels of ``src/repro_torch/kernels/csrc``
-   and prints the build time and the compiler's register report.
-2. Kernels against their plain PyTorch versions, on the card: K2
-   (``spdtw_tiles_paired``) against ``spdtw_paired_scan``, K1
-   (``spdtw_tiles_gram``: plain, thresholded with ``alive0``, prefix mode)
-   against ``gram_spdtw_scan`` / ``gram_prefix_bound``, for every tile
-   edge S, d in {1, 3}, random sparse supports and a learned one. The
-   limit is rel 1e-6 (the kernels repeat the plain versions' operations,
-   so the expected difference is 0), and the 1-NN of each kernel Gram
-   must equal the plain Gram's.
-3. The main path at the UCR TwoPatterns shape (1000 train / 4000 test,
-   T = 128, 4 classes): ``fit`` learns the support from all 499,500
-   train pairs on the card, ``engine.gram`` runs K1 over 4000 x 1000,
-   ``engine.knn`` the cascade (K2 seeds, K1 prefix bound and survivors),
-   whose neighbours must equal the Gram argmin bit for bit;
+   CUDA versions; builds the three sources of
+   ``src/repro_torch/kernels/csrc`` (one nvcc each, started together) and
+   prints the build times and the compiler's register report.
+2. Kernels against their plain PyTorch versions, on the card:
+   - K2 (``spdtw_tiles_paired``) against ``spdtw_paired_scan``, K1
+     (``spdtw_tiles_gram``: plain, thresholded with ``alive0``, prefix
+     mode) against ``gram_spdtw_scan`` / ``gram_prefix_bound``, for every
+     tile edge S, d in {1, 3}, random sparse supports and a learned one;
+   - K3 (``krdtw_gram``) and K4 (``krdtw_paired``) against
+     ``gram_log_krdtw_plain`` / ``wavefront_log_krdtw_plain`` at T in
+     {24, 100, 128, 300}, nu in {0.1, 0.5, 2}, on the full grid, a
+     corridor and a support; K3 and K4 must agree bit for bit;
+   - K5 (``dtw_wavefront``) and K6 (``dtw_banded``, pairs and Gram) against
+     ``wavefront_dtw_plain`` / ``banded_dtw_plain`` over the radius grid
+     up to w = 26, at d in {1, 3}.
+   The limit is rel 1e-6 for K1, K2, K5, K6 and rel 1e-5 for K3, K4 (exp
+   and log on both sides); the expected difference is 0 everywhere.
+3. The SP-DTW main path at the UCR TwoPatterns shape (1000 train / 4000
+   test, T = 128, 4 classes): ``fit`` learns the support from all
+   499,500 train pairs on the card, ``engine.gram`` runs K1 over
+   4000 x 1000, ``engine.knn`` the cascade (K2 seeds, K1 prefix bound and
+   survivors), whose neighbours must equal the Gram argmin bit for bit;
    ``engine.classify`` gives the error rate, and the DTW Gram (K1 over
-   the all-ones plan) the SP-DTW / DTW time ratio. The launch counters
-   are set to 0 just before and read just after; both kernels must have
-   launched. A slice of the Gram is held against the dense core DP, and
-   the Gram is timed again on sparser supports learned from the same
-   counts. Then a torch.profiler pass gives the device time by kernel
-   and the device's idle share for engine.knn, engine.gram and the
-   occupancy counts.
-4. Timing at the main path's shapes: each kernel against its plain
-   version, with its roofline bound; one JSON line ``{"kernels": ...}``.
+   the all-ones plan) the SP-DTW / DTW time ratio. A slice of the Gram is
+   held against the dense core DP, and the Gram is timed again on
+   sparser supports learned from the same counts.
+3b. The kernel-measure and baseline path at the same shape (paper Tables
+   II, IV and VI): ``select_nu`` (K3 Grams), ``select_theta_gamma`` for
+   sp_krdtw on fit's counts with thetas as shares of the train pairs
+   (K3), ``select_radius`` (K6 Grams), ``svm_gram_series`` +
+   ``svm_error`` for krdtw, krdtw_sc and sp_krdtw (K3 Grams, K4
+   self-similarities), the sp_krdtw ``engine.knn`` kernel cascade (K4
+   seeds and survivors, K1 prefix bound), whose neighbours must equal the
+   ``-gram_log`` argmin bit for bit, and the DTW / DTW_sc baselines (K5
+   pairs, K6 pairs and the dtw_sc Gram). Each stage is timed with CUDA
+   events.
+   For each path the launch counters are set to 0 just before and read
+   just after, and each of its kernels must have launched. Then a
+   torch.profiler pass gives the device time by kernel and the device's
+   idle share for calls of both paths.
+4. Timing at the paths' shapes: each kernel against its plain version,
+   with its bound; one JSON line ``{"kernels": ...}`` of all six kernels.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
@@ -54,16 +71,39 @@ sys.path.insert(0, str(ROOT / "src"))
 # HBM3 bandwidth
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
+# special-function unit (expf's ex2): 16 results per clock per SM on
+# compute capability 9.0 (CUDA C Programming Guide, arithmetic instruction
+# throughput), 132 SMs at the H100 SXM's 1.98 GHz boost clock
+SFU_RATE = 16 * 132 * 1.98e9
 REL_LIMIT = 1e-6
 DEVICE = "cuda"
 # the main path: UCR TwoPatterns' published split and length
 N_TRAIN, N_TEST, T_MAIN = 1000, 4000, 128
 
+CSRC = "src/repro_torch/kernels/csrc/"
+# entry point -> (the TPU kernel it replaces, its source)
 KERNELS = {
-    "spdtw_tiles_gram": "src/repro/kernels/gram_block.py:98",
-    "spdtw_tiles_paired": "src/repro/kernels/spdtw_block.py:148",
+    "spdtw_tiles_gram": ("src/repro/kernels/gram_block.py:98",
+                         CSRC + "spdtw_tiles.cu"),
+    "spdtw_tiles_paired": ("src/repro/kernels/spdtw_block.py:148",
+                           CSRC + "spdtw_tiles.cu"),
+    "krdtw_gram": ("src/repro/kernels/gram_block.py:648",
+                   CSRC + "krdtw_wavefront.cu"),
+    "krdtw_paired": ("src/repro/kernels/krdtw_wavefront.py:105",
+                     CSRC + "krdtw_wavefront.cu"),
+    "dtw_wavefront": ("src/repro/kernels/dtw_wavefront.py:30",
+                      CSRC + "dtw_wavefront.cu"),
+    "dtw_banded": ("src/repro/kernels/dtw_banded.py:41",
+                   CSRC + "dtw_wavefront.cu"),
 }
-SOURCE = "src/repro_torch/kernels/csrc/spdtw_tiles.cu"
+LIBRARIES = ("spdtw_tiles", "krdtw_wavefront", "dtw_wavefront")
+# the kernels of the SP-DTW path (phase 3) and of the kernel-measure and
+# baseline path (phase 3b)
+SLICE1 = ("spdtw_tiles_gram", "spdtw_tiles_paired")
+SLICE2 = ("spdtw_tiles_gram", "krdtw_gram", "krdtw_paired", "dtw_wavefront",
+          "dtw_banded")
+# K3 / K4 against their plain versions (exp / log on both sides)
+KREL_LIMIT = 1e-5
 
 
 def log(*a):
@@ -117,17 +157,23 @@ def cuda_ms(fn, reps: int = 1, warmup: int = 0):
 
 def phase_build():
     import torch
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _build.library("spdtw_tiles")
-    log(f"build: spdtw_tiles.cu in {time.perf_counter() - t0:.1f} s")
-    for line in _build.BUILD_LOG.get("spdtw_tiles", {}).get("log",
-                                                            "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        list(ex.map(_build.build, LIBRARIES))
+    for name in LIBRARIES:
+        _build.library(name)
+        info = _build.BUILD_LOG.get(name, {})
+        log(f"build: {name}.cu in {info.get('seconds', 0.0):.1f} s")
+        for line in info.get("log", "").splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+    log(f"build: all sources in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +260,7 @@ def phase_kernels():
         B = torch.as_tensor(rng.normal(size=shape(40)).astype(np.float32),
                             device=dev)
         w = _check_case(f"S={S} d={d} T={T} random", bsp, A, B, T)
-        for k in worst:
+        for k in w:
             worst[k] = [max(a, b) for a, b in zip(worst[k], w[k])]
     ds = make_cbf(n_train=40, n_test=24, T=128)
     Xtr = torch.as_tensor(ds.X_train, device=dev)
@@ -222,9 +268,95 @@ def phase_kernels():
     bsp = block_sparsify(sp, tile=16)
     w = _check_case("S=16 d=1 T=128 learned(CBF)", bsp,
                     torch.as_tensor(ds.X_test, device=dev), Xtr, 128)
-    for k in worst:
+    for k in w:
         worst[k] = [max(a, b) for a, b in zip(worst[k], w[k])]
+    for k, v in _check_slice2().items():
+        worst[k] = [max(a, b) for a, b in zip(worst[k], v)]
     log(f"phase 2 ok: worst (abs, rel) {worst}")
+    return worst
+
+
+def _band_support(T, seed):
+    """A corridor plus random cells, as a (T, T) bool support."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    i = np.arange(T)
+    sup = (np.abs(i[:, None] - i[None, :]) <= max(2, T // 12)) | \
+        (rng.random((T, T)) < 0.05)
+    sup[0, 0] = sup[-1, -1] = True
+    return sup
+
+
+def _check_slice2():
+    """K3 / K4 (log K_rdtw) and K5 / K6 (DTW, DTW_sc) against their plain
+    versions at T in {24, 100, 128, 300}: K3 / K4 for nu in {0.1, 0.5, 2}
+    on the full grid, a corridor and a support (learned from CBF at
+    T = 128); K5 / K6 over the TwoPatterns radius grid up to w = 26, at
+    d in {1, 3}. K3 and K4 must agree bit for bit on the same pairs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.occupancy import learn_sparse_paths
+    from repro_torch.data.synthetic_ucr import make_cbf
+    from repro_torch.kernels import dtw_banded as kb
+    from repro_torch.kernels import dtw_wavefront as kw
+    from repro_torch.kernels import gram_block as gb
+    from repro_torch.kernels import krdtw_wavefront as kk
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(1)
+    worst = {k: [0.0, 0.0] for k in ("krdtw_gram", "krdtw_paired",
+                                     "dtw_wavefront", "dtw_banded")}
+
+    def record(kernel, what, got, want, limit):
+        ab, rel = diff(got, want)
+        worst[kernel][0] = max(worst[kernel][0], ab)
+        worst[kernel][1] = max(worst[kernel][1], rel)
+        log(f"  {what}: max abs {ab:.3g} max rel {rel:.3g}")
+        require(rel <= limit, f"{what}: rel {rel} > {limit}")
+
+    ds = make_cbf(n_train=40, n_test=24, T=128)
+    learned = learn_sparse_paths(torch.as_tensor(ds.X_train), theta=2.0)
+    for T in (24, 100, 128, 300):
+        A = torch.as_tensor(rng.normal(size=(12, T)).astype(np.float32),
+                            device=dev)
+        B = torch.as_tensor(rng.normal(size=(16, T)).astype(np.float32),
+                            device=dev)
+        sup = learned.support.numpy() if T == 128 else _band_support(T, T)
+        for nu in (0.1, 0.5, 2.0):
+            for dom, kw_ in (("full", {}), ("radius 6", {"radius": 6}),
+                             ("support", {"support": sup})):
+                label = f"T={T} nu={nu} {dom}"
+                G = gb.gram_log_krdtw_block(A, B, nu, **kw_)
+                Gp = gb.gram_log_krdtw_plain(A, B, nu, **kw_)
+                record("krdtw_gram", f"K3 {label}", G, Gp, KREL_LIMIT)
+                md = None if "support" not in kw_ else \
+                    kk.mask_to_diagonal_major(sup)
+                x, y = A, B[:12]
+                P = kk.wavefront_log_krdtw(x, y, nu, radius=kw_.get(
+                    "radius"), mask_diag=md)
+                Pp = kk.wavefront_log_krdtw_plain(x, y, nu, radius=kw_.get(
+                    "radius"), mask_diag=md)
+                record("krdtw_paired", f"K4 {label}", P, Pp, KREL_LIMIT)
+                require(torch.equal(P, torch.diagonal(G[:, :12])),
+                        f"K3 != K4 bit for bit, {label}")
+        for d in (1, 3):
+            shape = (16, T) if d == 1 else (16, T, d)
+            x = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                device=dev)
+            y = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                device=dev)
+            for r in (None, 0, 3, 6, 13, 26):
+                label = f"T={T} d={d} radius {r}"
+                record("dtw_wavefront", f"K5 {label}",
+                       kw.wavefront_dtw(x, y, radius=r),
+                       kw.wavefront_dtw_plain(x, y, radius=r), REL_LIMIT)
+                if r is None:
+                    continue
+                record("dtw_banded", f"K6 {label}", kb.banded_dtw(x, y, r),
+                       kb.banded_dtw_plain(x, y, r), REL_LIMIT)
+                record("dtw_banded", f"K6 gram {label}",
+                       kb.banded_dtw_gram(x[:6], y, r),
+                       kb.banded_dtw_gram_plain(x[:6], y, r), REL_LIMIT)
+    log(f"  K3 == K4 bit for bit on every case")
     return worst
 
 
@@ -264,7 +396,7 @@ def phase_main_path():
                lambda: deng.gram(ds.X_test))
     launches = launch_counts()
     log(f"  launches on the main path: {launches}")
-    for k in KERNELS:
+    for k in SLICE1:
         require(launches[k] > 0, f"{k} never launched on the main path")
 
     bsp = eng.bsp
@@ -301,7 +433,7 @@ def phase_main_path():
     log(f"  SP-DTW / DTW Gram time ratio: {ratio:.3f} (speed-up "
         f"{1 / ratio:.2f}x; tiles {bsp.n_active} vs "
         f"{deng.bsp.n_active})")
-    return {"engine": eng, "X_test": ds.X_test, "G": G, "nn": nn,
+    return {"engine": eng, "ds": ds, "X_test": ds.X_test, "G": G, "nn": nn,
             "launches": launches, "stages": stage}
 
 
@@ -330,17 +462,245 @@ def _theta_sweep(eng, ds, dtw_tiles, dtw_ms):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the kernel-measure and baseline path (paper Tables II, IV, VI)
+# ---------------------------------------------------------------------------
+
+# meta-parameter grids of the path: nu as benchmarks/common.py, theta as
+# shares of the train pairs (an absolute count of 2 keeps every tile at
+# this size), the radius grid of the reference's select_radius
+NU_GRID = (0.1, 0.5, 2.0)
+THETA_SHARES = (0.01, 0.1, 0.3)
+RADIUS_FRACS = (0.0, 0.02, 0.05, 0.1, 0.2)
+
+
+def phase_kernel_path(main):
+    """select_nu (K3 Grams), select_theta_gamma for sp_krdtw on fit's
+    counts (K3), the Table IV SVM for krdtw / krdtw_sc / sp_krdtw (K3
+    Grams, K4 self-similarities), the sp_krdtw kernel cascade (K4 seeds
+    and survivors, K1 prefix bound) against the -gram_log argmin, and the
+    DTW / DTW_sc baselines (K5 pairs, K6 pairs, select_radius and the
+    dtw_sc Gram on K6). Launch counters are set to 0 just before and read
+    just after; K1 and K3-K6 must all have launched."""
+    import numpy as np
+    import torch
+    from repro_torch.classify import crossval, svm
+    from repro_torch.core.engine import fit
+    from repro_torch.core.spec import MeasureSpec
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    ds = main["ds"]
+    counts = main["engine"].sp.counts
+    Xtr = torch.as_tensor(ds.X_train, device=DEVICE)
+    Xte = torch.as_tensor(ds.X_test, device=DEVICE)
+    n_classes = int(ds.y_train.max()) + 1
+    stage = {}
+
+    def timed(name, fn):
+        ms, out = cuda_ms(fn)
+        stage[name] = ms
+        log(f"  {name}: {ms:.1f} ms")
+        return out
+
+    log(f"  grids: nu {NU_GRID}, theta {THETA_SHARES} x train pairs, "
+        f"radius fractions {RADIUS_FRACS} of T (nothing cut)")
+    reset_launch_counts()
+    sel_nu = timed("select_nu krdtw (3 K3 Grams 1000 x 1000)",
+                   lambda: crossval.select_nu(Xtr, ds.y_train, grid=NU_GRID))
+    nu = sel_nu.nu
+    log(f"  nu = {nu} (LOO {sel_nu.loo:.4f})")
+    n_pairs = N_TRAIN * (N_TRAIN - 1) // 2
+    sel_th, curve = timed(
+        "select_theta_gamma sp_krdtw (3 K3 Grams 1000 x 1000)",
+        lambda: crossval.select_theta_gamma(
+            Xtr, ds.y_train, name="sp_krdtw",
+            thetas=[f * n_pairs for f in THETA_SHARES], nu=nu,
+            counts=counts, return_curve=True))
+    for th, _, err, cells in curve:
+        log(f"    theta {th:.0f} ({th / n_pairs:g} x pairs): {cells} cells, "
+            f"LOO {err:.4f}")
+    sp = sel_th.sp
+    log(f"  theta = {sel_th.theta:.0f} ({sel_th.theta / n_pairs:g} x pairs, "
+        f"{sp.n_cells} cells, LOO {sel_th.loo:.4f})")
+    sel_r = timed("select_radius (5 K6 Grams 1000 x 1000)",
+                  lambda: crossval.select_radius(Xtr, ds.y_train,
+                                                 fracs=RADIUS_FRACS))
+    radius = sel_r.radius
+    log(f"  dtw_sc radius = {radius} (LOO {sel_r.loo:.4f})")
+
+    svm_err = {}
+    for kind in ("krdtw", "krdtw_sc", "sp_krdtw"):
+        K, Kt = timed(f"svm_gram_series {kind} (K3 1000 x 1000 + 4000 x "
+                      f"1000, K4 4000)",
+                      lambda kind=kind: svm.svm_gram_series(
+                          Xtr, Xte, kind=kind, sp=sp, nu=nu, radius=radius))
+        require(bool(torch.isfinite(K).all()) and
+                bool(torch.isfinite(Kt).all()), f"{kind} SVM Gram finite")
+        ddiff = float((torch.diagonal(K) - 1).abs().max())
+        require(ddiff <= 1e-5, f"{kind} normalized diagonal != 1")
+        svm_err[kind] = timed(f"svm_error {kind}",
+                              lambda: svm.svm_error(K, Kt, ds.y_train,
+                                                    ds.y_test, n_classes))
+    log(f"  Table IV SVM test error: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in svm_err.items()))
+
+    keng = fit(MeasureSpec("sp_krdtw", nu=nu, theta=sel_th.theta), Xtr,
+               labels=ds.y_train, sp=sp)
+    nn, nnd, stats = timed("sp_krdtw engine.knn (kernel cascade)",
+                           lambda: keng.knn(Xte, return_stats=True))
+    LG = timed("sp_krdtw engine.gram_log 4000 x 1000 (K3)",
+               lambda: keng.gram_log(Xte))
+    ref_nn = torch.argmin(-LG, dim=1).to(torch.int32)
+    require(torch.equal(nn, ref_nn), "kernel cascade nn != -gram_log argmin")
+    require(torch.equal(nnd, (-LG).gather(1, ref_nn[:, None].long())[:, 0]),
+            "kernel cascade distance != -gram_log minimum")
+    kerr = float(np.mean(ds.y_train[nn.cpu().numpy()] != ds.y_test))
+    gerr = float(np.mean(ds.y_train[ref_nn.cpu().numpy()] != ds.y_test))
+    require(kerr == gerr, "cascade error != -gram_log argmin error")
+    log(f"  kernel cascade nn == -gram_log argmin, bit for bit; 1-NN "
+        f"error SP-K_rdtw {kerr:.4f} (-gram_log argmin {gerr:.4f}); "
+        f"stats {stats}")
+
+    deng = fit(MeasureSpec("dtw", support="dense"), Xtr)
+    seng = fit(MeasureSpec("dtw_sc", support="band", radius=radius), Xtr)
+    y = Xtr[nn.long()]
+    Pd = timed("dtw engine.pairs 4000 (K5)", lambda: deng.pairs(Xte, y))
+    Ps = timed("dtw_sc engine.pairs 4000 (K5, radius)",
+               lambda: seng.pairs(Xte, y))
+    Pb = timed("ops.dtw_banded_pairs 4000 (K6)",
+               lambda: ops.dtw_banded_pairs(Xte, y, radius))
+    ab, rel = diff(Pb, Ps)
+    log(f"  K6 vs K5 (radius {radius}) on the same pairs: max abs {ab:.3g} "
+        f"max rel {rel:.3g}")
+    require(rel <= 1e-5, "K6 and K5 disagree on DTW_sc")
+    require(bool((Ps >= Pd).all()), "DTW_sc below DTW")
+    Gs = timed("dtw_sc engine.gram 4000 x 1000 (K6)", lambda: seng.gram(Xte))
+    serr = float(np.mean(
+        ds.y_train[torch.argmin(Gs, dim=1).cpu().numpy()] != ds.y_test))
+    log(f"  1-NN test error: DTW_sc (radius {radius}) {serr:.4f}")
+    launches = launch_counts()
+    log(f"  launches on the kernel path: {launches}")
+    for k in SLICE2:
+        require(launches[k] > 0, f"{k} never launched on the kernel path")
+    return {"nu": nu, "sp": sp, "radius": radius, "keng": keng, "LG": LG,
+            "nn": nn, "Gs": Gs, "launches": launches, "stages": stage}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4
 # ---------------------------------------------------------------------------
 
-def _bound(cells, d, in_bytes, out_bytes):
-    # per cell: d subtractions, d multiplications, d - 1 channel
-    # additions and 1 weight multiply for the cost, then 2 min and 1 add
-    # for D = cost + min(top, topleft, left)
-    ops = cells * (3 * d + 3)
-    t_ops, t_bytes = ops / FP32_PEAK, (in_bytes + out_bytes) / HBM_RATE
+def _bound_cells(cells, flops, sfu, in_bytes, out_bytes):
+    """Least time (ms) for ``cells`` needed DP cells of ``flops`` FP32
+    operations and ``sfu`` special-function results each, against the
+    bytes read and written once; and what bounds it."""
+    t_ops = max(cells * flops / FP32_PEAK, cells * sfu / SFU_RATE)
+    t_bytes = (in_bytes + out_bytes) / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, \
         ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# per needed cell of log K_rdtw: kappa (sub, mul, mul by -nu), K1 (2 add,
+# 2 mul), K2 (3 add, 5 mul), the rescale (4 mul) = 19 FP32 operations
+# and one expf
+KRDTW_FLOPS = 19
+# per needed cell of DTW: d sub, d mul, d - 1 add, then 2 min and 1 add
+def _dtw_flops(d):
+    return 3 * d + 2
+
+
+# per needed cell of SP-DTW: DTW's, and 1 weight multiply
+def _spdtw_flops(d):
+    return 3 * d + 3
+
+
+def phase_timing_slice2(kp, ds):
+    """K3-K6 at the kernel path's shapes against their plain versions,
+    with their bounds. Plain K3 is timed on a 256 x 1000 slice of the
+    4000 x 1000 Gram and plain K6 on a 64 x 1000 slice (both are
+    launch-bound loops over diagonals / rows)."""
+    import torch
+    from repro_torch.core.dtw import band_cells
+    from repro_torch.kernels import dtw_banded as kb
+    from repro_torch.kernels import dtw_wavefront as kw
+    from repro_torch.kernels import gram_block as gb
+    from repro_torch.kernels import krdtw_wavefront as kk
+    Xtr = torch.as_tensor(ds.X_train, device=DEVICE)
+    Xte = torch.as_tensor(ds.X_test, device=DEVICE)
+    Na, Nb, T = Xte.shape[0], Xtr.shape[0], Xte.shape[1]
+    nu, sp, radius = kp["nu"], kp["sp"], kp["radius"]
+    sup = sp.support.cpu().numpy()
+    rows = []
+
+    def row(name, ms, plain_ms, ab, bound, what):
+        rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": ab, "bound_ms": bound[0],
+                     "bound_by": bound[1]})
+        log(f"  {name} {what}: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
+            f"bound {bound[0]:.4f} ms by {bound[1]}, max abs err {ab:.3g})")
+
+    # K3: the sp_krdtw Gram of the SVM and the cascade's reference
+    ms, G = cuda_ms(lambda: gb.gram_log_krdtw_block(Xte, Xtr, nu,
+                                                    support=sup),
+                    reps=3, warmup=1)
+    require(torch.equal(G, kp["LG"]), "K3 not deterministic across runs")
+    n_sl = 256
+    pms, Gp = cuda_ms(lambda: gb.gram_log_krdtw_plain(Xte[:n_sl], Xtr, nu,
+                                                      support=sup))
+    ab, rel = diff(G[:n_sl], Gp)
+    require(rel <= KREL_LIMIT, f"K3 at main shapes: rel {rel}")
+    row("krdtw_gram", ms, pms, ab,
+        _bound_cells(Na * Nb * sp.n_cells, KRDTW_FLOPS, 1,
+                     (Na + Nb) * T * 4, Na * Nb * 4),
+        f"{Na}x{Nb} sp_krdtw ({sp.n_cells} cells; plain on {n_sl}x{Nb})")
+
+    # K4: the cascade's seed shapes, seed_k = 2 pairs per query
+    nn = kp["nn"].long()
+    g = torch.Generator(device="cpu").manual_seed(3)
+    other = torch.randint(0, Nb, (Na,), generator=g).to(DEVICE)
+    x = Xte.repeat_interleave(2, dim=0)
+    y = Xtr[torch.stack([nn, other], dim=1).reshape(-1)]
+    md = kk.mask_to_diagonal_major(sup)
+    ms, P = cuda_ms(lambda: kk.wavefront_log_krdtw(x, y, nu, mask_diag=md),
+                    reps=5, warmup=1)
+    pms, Pp = cuda_ms(lambda: kk.wavefront_log_krdtw_plain(x, y, nu,
+                                                           mask_diag=md))
+    ab, rel = diff(P, Pp)
+    require(rel <= KREL_LIMIT, f"K4 at main shapes: rel {rel}")
+    B = x.shape[0]
+    row("krdtw_paired", ms, pms, ab,
+        _bound_cells(B * sp.n_cells, KRDTW_FLOPS, 1, 2 * B * T * 4, B * 4),
+        f"{B} pairs sp_krdtw")
+
+    # K5: DTW over the 4000 (query, nearest) pairs of engine.pairs
+    y1 = Xtr[nn]
+    ms, P = cuda_ms(lambda: kw.wavefront_dtw(Xte, y1), reps=5, warmup=1)
+    pms, Pp = cuda_ms(lambda: kw.wavefront_dtw_plain(Xte, y1))
+    ab, rel = diff(P, Pp)
+    require(rel <= REL_LIMIT, f"K5 at main shapes: rel {rel}")
+    row("dtw_wavefront", ms, pms, ab,
+        _bound_cells(Na * T * T, _dtw_flops(1), 0, 2 * Na * T * 4, Na * 4),
+        f"{Na} pairs full grid")
+
+    # K6: the dtw_sc Gram at the selected radius, then the widest strip
+    # the path runs (select_radius's last candidate, over train x train)
+    ms, G6 = cuda_ms(lambda: kb.banded_dtw_gram(Xte, Xtr, radius), reps=3,
+                     warmup=1)
+    require(torch.equal(G6, kp["Gs"]), "K6 not deterministic across runs")
+    log(f"  dtw_banded {Na}x{Nb} radius {radius} (the dtw_sc Gram): "
+        f"{ms:.3f} ms")
+    w = max(int(round(f * T)) for f in RADIUS_FRACS)
+    ms, G6 = cuda_ms(lambda: kb.banded_dtw_gram(Xtr, Xtr, w), reps=3,
+                     warmup=1)
+    n6 = 64
+    pms, Gp6 = cuda_ms(lambda: kb.banded_dtw_gram_plain(Xtr[:n6], Xtr, w,
+                                                        block=n6 * Nb))
+    ab, rel = diff(G6[:n6], Gp6)
+    require(rel <= REL_LIMIT, f"K6 at main shapes: rel {rel}")
+    cells = band_cells(T, T, w)
+    row("dtw_banded", ms, pms, ab,
+        _bound_cells(Nb * Nb * cells, _dtw_flops(1), 0, 2 * Nb * T * 4,
+                     Nb * Nb * 4),
+        f"{Nb}x{Nb} radius {w} ({cells} cells; plain on {n6}x{Nb})")
+    return rows
 
 
 def phase_timing(main):
@@ -364,8 +724,9 @@ def phase_timing(main):
     require(rel <= REL_LIMIT, f"K1 at main shapes: rel {rel}")
     require(torch.equal(Gk, G), "K1 not deterministic across runs")
     Na, Nb = Q.shape[0], C.shape[0]
-    bound_ms, bound_by = _bound(Na * Nb * bsp.n_active * S * S, 1,
-                                (Na + Nb) * T * 4 + meta_b, Na * Nb * 4)
+    bound_ms, bound_by = _bound_cells(Na * Nb * bsp.n_active * S * S,
+                                      _spdtw_flops(1), 0,
+                                      (Na + Nb) * T * 4 + meta_b, Na * Nb * 4)
     rows.append({"name": "spdtw_tiles_gram", "ms": ms, "plain_ms": plain_ms,
                  "max_abs_err": ab, "bound_ms": bound_ms,
                  "bound_by": bound_by})
@@ -384,37 +745,55 @@ def phase_timing(main):
     ab2, rel2 = diff(Pk, Pp)
     require(rel2 <= REL_LIMIT, f"K2 at main shapes: rel {rel2}")
     B = x.shape[0]
-    b2_ms, b2_by = _bound(B * bsp.n_active * S * S, 1,
-                          2 * B * T * 4 + meta_b, B * 4)
+    b2_ms, b2_by = _bound_cells(B * bsp.n_active * S * S, _spdtw_flops(1),
+                                0, 2 * B * T * 4 + meta_b, B * 4)
     rows.append({"name": "spdtw_tiles_paired", "ms": ms2,
                  "plain_ms": plain2, "max_abs_err": ab2, "bound_ms": b2_ms,
                  "bound_by": b2_by})
     log(f"  K2 paired {B}: {ms2:.3f} ms (plain {plain2:.1f} ms, bound "
         f"{b2_ms:.4f} ms by {b2_by})")
+    return rows
+
+
+def kernels_line(rows, launches):
+    """The ``{"kernels": [...]}`` entries: each kernel's launches come from
+    the path it belongs to (K1 / K2 the SP-DTW path, K3-K6 the kernel
+    path)."""
     out = []
     for r in rows:
-        out.append({"name": r["name"], "route": "cuda", "source": SOURCE,
-                    "replaces": KERNELS[r["name"]],
-                    "launches": main["launches"][r["name"]],
+        out.append({"name": r["name"], "route": "cuda",
+                    "source": KERNELS[r["name"]][1],
+                    "replaces": KERNELS[r["name"]][0],
+                    "launches": launches[r["name"]],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None})
     return out
 
 
-def phase_profile(main):
+def phase_profile(main, kp=None):
     """Device time by kernel over one ``engine.knn``, one ``engine.gram``
-    and the occupancy counts of 200 train series (torch.profiler), and
-    the device's busy share of the wall time of each call."""
+    and the occupancy counts of 200 train series (torch.profiler), and,
+    after the kernel path, one sp_krdtw ``engine.knn`` and one SVM Gram
+    series; with the device's busy share of the wall time of each call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.occupancy import pairwise_path_counts
     eng, X = main["engine"], main["X_test"]
-    for what, fn in (("engine.knn", lambda: eng.knn(X)),
-                     ("engine.gram", lambda: eng.gram(X)),
-                     ("pairwise_path_counts, 200 train series",
-                      lambda: pairwise_path_counts(eng.corpus[:200]))):
+    calls = [("engine.knn", lambda: eng.knn(X)),
+             ("engine.gram", lambda: eng.gram(X)),
+             ("pairwise_path_counts, 200 train series",
+              lambda: pairwise_path_counts(eng.corpus[:200]))]
+    if kp is not None:
+        from repro_torch.classify import svm
+        keng = kp["keng"]
+        calls += [("sp_krdtw engine.knn", lambda: keng.knn(X)),
+                  ("svm_gram_series sp_krdtw",
+                   lambda: svm.svm_gram_series(keng.corpus, X,
+                                               kind="sp_krdtw", sp=kp["sp"],
+                                               nu=kp["nu"]))]
+    for what, fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -436,7 +815,10 @@ def phase_profile(main):
             f"{100 * (1 - busy / wall_ms):.1f}%")
         ours = [e.device_time_total / 1e3 for e in prof.events()
                 if e.device_type == DeviceType.CUDA
-                and ("gram_kernel" in e.name or "paired_kernel" in e.name)]
+                and any(k in e.name for k in ("gram_kernel", "paired_kernel",
+                                              "krdtw_kernel",
+                                              "wavefront_kernel",
+                                              "banded_kernel"))]
         log(f"    CUDA kernel launches in order (ms): "
             f"{', '.join(f'{t:.2f}' for t in ours)}")
         for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
@@ -467,12 +849,19 @@ def main(argv=None) -> int:
         return 0
     log(f"phase 3: main path, TwoPatterns {N_TRAIN}/{N_TEST}, T={T_MAIN}")
     main_out = phase_main_path()
+    log(f"phase 3b: kernel-measure and baseline path, TwoPatterns "
+        f"{N_TRAIN}/{N_TEST}, T={T_MAIN}")
+    kp = phase_kernel_path(main_out)
     log("profile: device time by kernel")
-    phase_profile(main_out)
+    phase_profile(main_out, kp)
     if args.stop_after < 4:
         return 0
-    log("phase 4: kernel timing at the main path's shapes")
-    kernels = phase_timing(main_out)
+    log("phase 4: kernel timing at the paths' shapes")
+    rows = phase_timing(main_out) + phase_timing_slice2(kp, main_out["ds"])
+    launches = {k: main_out["launches"][k] for k in SLICE1}
+    launches.update({k: kp["launches"][k] for k in KERNELS
+                     if k not in SLICE1})
+    kernels = kernels_line(rows, launches)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -5,18 +5,26 @@
                                                     which they would shadow)
   backtrack, optimal_path_mask, path_is_feasible    (paths.py)
   learn_sparse_paths, SparsePaths, block_sparsify   (occupancy.py)
-  envelopes, lb_kim_band_cross, lb_keogh_cross      (bounds.py)
+  log_krdtw, normalized_gram                        (krdtw.py; its krdtw
+                                                    stays in the module)
+  euclidean, corr, daco                             (baselines.py)
+  envelopes, lb_kim_band_cross, lb_keogh_cross,
+  krdtw_log_slacks, lb_log_krdtw                    (bounds.py)
   CorpusIndex, build_corpus_index                   (measures.py)
   MeasureSpec                                       (spec.py)
   fit, SimilarityEngine                             (engine.py)
 """
-from .dtw import INF, band_mask, dtw_matrix, local_cost, minplus_scan
+from .dtw import (INF, band_cells, band_mask, dtw_matrix, dtw_sc, local_cost,
+                  minplus_scan)
+from .krdtw import log_krdtw, log_krdtw_batch, normalized_gram
+from .baselines import corr, daco, euclidean, znormalize
 from .paths import backtrack, optimal_path_mask, path_is_feasible
 from .occupancy import (BlockSparsePaths, SparsePaths, block_sparsify,
                         default_tile, learn_sparse_paths, normalize_grid,
                         pairwise_path_counts)
-from .bounds import (envelopes, lb_keogh_cross, lb_kim_band_cross,
-                     lb_kim_cross, row_min_weights, support_extents)
+from .bounds import (envelopes, krdtw_log_slacks, lb_keogh_cross,
+                     lb_kim_band_cross, lb_kim_cross, lb_log_krdtw,
+                     row_min_weights, support_extents)
 from .measures import CorpusIndex, build_corpus_index
 from .spec import MeasureSpec
 from .engine import SimilarityEngine, fit

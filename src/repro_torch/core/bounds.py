@@ -1,7 +1,10 @@
-"""Admissible lower bounds for (SP-)DTW similarity search, min-plus subset.
+"""Admissible lower bounds for (SP-)DTW and K_rdtw similarity search.
 
-The counterpart of ``repro.core.bounds`` for the dissimilarity cascade.
-Every bound b(q, c) satisfies b(q, c) <= SP-DTW(q, c), so pruning on
+The counterpart of ``repro.core.bounds``: the min-plus bounds of the
+dissimilarity cascade, and the log-semiring bound of the kernel cascade
+built on them (``krdtw_log_slacks``, ``lb_log_krdtw``).
+
+Every min-plus bound b(q, c) satisfies b(q, c) <= SP-DTW(q, c), so pruning on
 ``b > threshold`` never discards the true 1-NN. Both bounds are
 sparsity-aware: the learned support restricts every admissible path, so
 the per-row column windows it induces tighten the classic envelopes.
@@ -157,3 +160,52 @@ def lb_keogh_cross(Q: torch.Tensor, env_lo: torch.Tensor,
     rows = [_keogh_penalty(Q[s:s + block_q], env_lo, env_hi, wmin)
             for s in range(0, Q.shape[0], block_q)]
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Log-semiring bounds for the K_rdtw kernel measures (DESIGN.md §14)
+# ---------------------------------------------------------------------------
+
+def krdtw_log_slacks(support=None, T: int | None = None) -> Tuple[float,
+                                                                  float]:
+    """Proven slack terms (log S1, log S2) of the K_rdtw upper bound.
+
+    K1 is a sum over admissible paths of coeff(p) * prod exp(-nu *
+    cost), with path-shape coefficients independent of the series, so
+    K1(x, y) <= S1 * exp(-nu * B1) for any admissible lower bound B1 on
+    the unit-weight masked path cost; S1 is the K1 recursion run with
+    kappa = 1 over the support. Same for K2 with S2 (kappa = dkap = 1).
+    Pass the (T, T) bool ``support`` or a bare ``T`` for the full grid.
+    """
+    from .krdtw import _krdtw_rows
+    if support is not None:
+        mask = torch.as_tensor(np.asarray(support, bool))
+        T = mask.shape[0]
+    else:
+        if T is None:
+            raise ValueError("need a support or a length")
+        mask = None
+    ones = torch.ones((1, T, T), dtype=torch.float32)
+    l1, l2 = _krdtw_rows(ones, torch.ones((1, T), dtype=torch.float32), mask)
+    return float(l1[0]), float(l2[0])
+
+
+def lb_log_krdtw(b1: torch.Tensor, b2: torch.Tensor, nu: float,
+                 log_s1: float, log_s2: float) -> torch.Tensor:
+    """Admissible lower bound on -log K_rdtw from min-plus cost bounds.
+
+    ``b1`` lower-bounds the unit-weight masked min-path cost, ``b2`` the
+    aligned endpoint cost (x_0 - y_0)^2 + (x_{T-1} - y_{T-1})^2, so
+
+        -log K_rdtw >= -logaddexp(log_s1 - nu*b1, log_s2 - nu*b2),
+
+    and pruning on it never drops the true nearest neighbour.
+    """
+    from .krdtw import logaddexp
+    f32 = dict(dtype=torch.float32, device=b1.device)
+    s1 = torch.tensor(log_s1, **f32)
+    s2 = torch.tensor(log_s2, **f32)
+    nu_t = torch.tensor(nu, **f32)
+    lhs = s1 - nu_t * torch.clamp_max(b1, INF)
+    rhs = s2 - nu_t * torch.clamp_max(b2, INF)
+    return torch.clamp_max(-logaddexp(lhs, rhs), INF)

@@ -156,6 +156,12 @@ def wdtw(x: torch.Tensor, y: torch.Tensor,
     return dtw_matrix(x, y, weights=weights)[-1, -1]
 
 
+def dtw_sc(x: torch.Tensor, y: torch.Tensor, radius: int) -> torch.Tensor:
+    """Sakoe-Chiba banded DTW with corridor half-width ``radius``."""
+    w = band_mask(x.shape[0], y.shape[0], radius, device=x.device)
+    return dtw_matrix(x, y, weights=w.to(torch.float32))[-1, -1]
+
+
 def band_mask(Tx: int, Ty: int, radius: int,
               device: torch.device | str = "cpu") -> torch.Tensor:
     """Sakoe-Chiba corridor mask of half-width ``radius`` (True =
@@ -165,3 +171,8 @@ def band_mask(Tx: int, Ty: int, radius: int,
     j = torch.arange(Ty, device=device)[None, :]
     sx = max(Tx - 1, 1)
     return torch.abs(j * sx - i * (Ty - 1)) <= radius * sx
+
+
+def band_cells(Tx: int, Ty: int, radius: int) -> int:
+    """Number of DP cells visited by the Sakoe-Chiba corridor (Table VI)."""
+    return int(band_mask(Tx, Ty, radius).sum())

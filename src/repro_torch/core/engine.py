@@ -1,11 +1,19 @@
 """Fitted-engine API: ``MeasureSpec -> fit(corpus) -> SimilarityEngine``.
 
-The counterpart of ``repro.core.engine`` for the min-plus families
-(``dtw``, ``spdtw``): ``fit(spec, corpus)`` resolves the support grid, the
-block-sparse tile plan and the per-corpus search index exactly once, and
-returns a frozen ``SimilarityEngine`` whose ``pairs`` / ``gram`` / ``knn``
-/ ``classify`` reuse them. Series may be univariate (N, T) or
-multivariate (N, T, d).
+The counterpart of ``repro.core.engine``: ``fit(spec, corpus)`` resolves
+the support grid, the block-sparse tile plan and the per-corpus search
+index exactly once, and returns a frozen ``SimilarityEngine`` whose
+``pairs`` / ``gram`` / ``gram_log`` / ``knn`` / ``classify`` reuse them.
+Every family of ``MeasureSpec`` fits: the min-plus DPs (``dtw``,
+``dtw_sc``, ``spdtw``), the K_rdtw kernels (``krdtw``, ``krdtw_sc``,
+``sp_krdtw``; log-kernel values, negated into dissimilarities by
+``pairs`` / ``gram``) and the baselines (``euclidean``, ``corr``,
+``daco``). ``dtw`` / ``spdtw`` engines carry the min-plus cascade's
+index, univariate ``krdtw`` / ``sp_krdtw`` engines the log-semiring
+cascade's (unit weights over the support, a plan for them, ``nu``);
+the others find neighbours by the exact Gram argmin. Series may be
+univariate (N, T) or multivariate (N, T, d) (the kernel families are
+univariate on the card).
 
 Every engine has a device. ``fit`` puts it on ``cuda`` unless the caller
 passes ``device="cpu"``, and raises when asked for CUDA on a machine
@@ -24,9 +32,10 @@ import torch
 from .dtw import band_mask
 from .measures import CorpusIndex, build_corpus_index
 from .occupancy import BlockSparsePaths, SparsePaths, learn_sparse_paths
-from .spec import MeasureSpec
+from .spec import KERNEL_FAMILIES, MeasureSpec
 
-_MINPLUS_FAMILIES = ("dtw", "spdtw")   # the families this port fits
+_CASCADE_FAMILIES = ("dtw", "spdtw")   # admissible min-plus bounds exist
+_BASELINES = ("euclidean", "corr", "daco")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,12 +75,14 @@ class SimilarityEngine:
 
     spec            the ``MeasureSpec`` this engine realizes;
     T, d            series length / channel count;
-    sp              the resolved ``SparsePaths`` support (None for dtw);
-    weights         the dense (T, T) weight grid (None for dtw);
-    bsp             the block-sparse tile plan;
+    sp              the resolved ``SparsePaths`` support (None for the
+                    dense-support families);
+    weights         the dense (T, T) weight grid (None likewise);
+    bsp             the block-sparse tile plan (dtw / spdtw only);
     corpus, labels  the fitted candidate set (None when fit
                     support-only);
-    index           the per-corpus ``CorpusIndex`` of the cascade;
+    index           the per-corpus ``CorpusIndex`` of the min-plus or
+                    the kernel cascade (None for the other families);
     device          where the engine's tensors live and compute;
     version         refresh stamp: 0 for a fresh ``fit``, bumped by
                     ``with_corpus``.
@@ -97,6 +108,11 @@ class SimilarityEngine:
         return self.spec.family
 
     @property
+    def is_kernel(self) -> bool:
+        """True for similarity (log-kernel) families."""
+        return self.spec.is_kernel
+
+    @property
     def corpus_size(self) -> int:
         """Number of fitted corpus series (0 when support-only)."""
         return 0 if self.corpus is None else int(self.corpus.shape[0])
@@ -111,46 +127,98 @@ class SimilarityEngine:
             raise ValueError("engine was fit without a corpus; pass B")
         return self.corpus
 
+    def _kernel_args(self) -> dict:
+        """support / radius of a kernel family's DP domain."""
+        f = self.family
+        return {"support": self.sp.support
+                if (f == "sp_krdtw" and self.sp is not None) else None,
+                "radius": self.spec.radius if f == "krdtw_sc" else None}
+
     def pairs(self, x, y, *, impl: str = "auto") -> torch.Tensor:
-        """Batched aligned-pair dissimilarity: (B, T[, d]) x same -> (B,)."""
+        """Batched aligned-pair dissimilarity: (B, T[, d]) x same -> (B,).
+        Kernel families return the negated log kernel, so every family
+        is argmin-ready."""
         from repro_torch.kernels import ops
         x, y = self._series(x), self._series(y)
-        if self.family == "dtw":
+        f = self.family
+        if f == "dtw":
             return ops._dtw_pairs(x, y, impl=impl)
-        return ops._spdtw_pairs(x, y, self.sp, bsp=self.bsp, impl=impl)
+        if f == "dtw_sc":
+            return ops._dtw_pairs(x, y, impl=impl, radius=self.spec.radius)
+        if f == "spdtw":
+            return ops._spdtw_pairs(x, y, self.sp, bsp=self.bsp, impl=impl)
+        if f in KERNEL_FAMILIES:
+            return -ops._log_krdtw_pairs(x, y, self.spec.nu, impl=impl,
+                                         **self._kernel_args())
+        return ops._baseline_pairs(f, x, y, self.spec.lags)
 
     def gram(self, A, B=None, *, impl: str = "auto", block_a: int = 64,
              thresholds=None, alive0=None) -> torch.Tensor:
         """(Na, Nb) dissimilarity matrix against ``B`` (default: the
-        fitted corpus) through the block-sparse Gram engines;
-        ``thresholds``/``alive0`` engage the early-abandon sweep (spdtw
-        only)."""
+        fitted corpus) through the Gram engines; kernel families are
+        negated into dissimilarities. ``thresholds``/``alive0`` engage
+        the early-abandon sweep (spdtw only)."""
         from repro_torch.kernels import ops
         A = self._series(A)
         B = self._corpus_or(B)
-        if self.family == "dtw":
-            if thresholds is not None or alive0 is not None:
-                raise ValueError("early abandon needs the spdtw plan path")
+        f = self.family
+        if f != "spdtw" and (thresholds is not None or alive0 is not None):
+            raise ValueError("early abandon needs the spdtw plan path")
+        if f == "dtw":
             return ops._dtw_gram(A, B, impl=impl)
-        return ops._spdtw_gram(A, B, sp=self.sp, bsp=self.bsp, impl=impl,
-                               block_a=block_a, thresholds=thresholds,
-                               alive0=alive0)
+        if f == "spdtw":
+            return ops._spdtw_gram(A, B, sp=self.sp, bsp=self.bsp,
+                                   impl=impl, block_a=block_a,
+                                   thresholds=thresholds, alive0=alive0)
+        if f == "dtw_sc":
+            return ops._dtw_sc_gram(A, B, self.spec.radius, impl=impl)
+        if f in KERNEL_FAMILIES:
+            return -self.gram_log(A, B, impl=impl)
+        return ops._baseline_gram(f, A, B, self.spec.lags, block=block_a)
+
+    def gram_log(self, A, B=None, *, impl: str = "auto") -> torch.Tensor:
+        """(Na, Nb) log-kernel Gram matrix (kernel families only; the SVM
+        workload's input): K3 on the card."""
+        from repro_torch.kernels import ops
+        if not self.is_kernel:
+            raise ValueError(f"{self.family} is not a kernel")
+        A = self._series(A)
+        B = self._corpus_or(B)
+        return ops._log_krdtw_gram(A, B, self.spec.nu, impl=impl,
+                                   **self._kernel_args())
 
     def knn(self, Q, *, impl: str = "auto", seed_k: int = 2,
             prefix_frac: float = 0.5, return_stats: bool = False,
             mode: str = "exact"):
-        """Exact 1-NN of each query against the fitted corpus through the
-        lower-bound cascade (DESIGN.md §4): bit-identical to the full Gram
-        argmin. Returns (nn_idx, nn_dist[, stats])."""
+        """Exact 1-NN of each query against the fitted corpus:
+        dissimilarity engines through the lower-bound cascade (DESIGN.md
+        §4), kernel engines through the log-semiring cascade (§14), both
+        bit-identical to the full Gram argmin; families without an index
+        (dtw_sc, krdtw_sc, the baselines, multivariate kernels) take the
+        Gram argmin itself. Returns (nn_idx, nn_dist[, stats])."""
         from repro_torch.kernels import ops
         if mode != "exact":
             raise NotImplementedError("only mode='exact' is ported; the "
                                       "sketch tier comes later")
-        if self.index is None:
+        if self.corpus is None:
             raise ValueError("engine was fit without a corpus")
-        return ops._knn_cascade(self._series(Q), self.index, impl=impl,
-                                seed_k=seed_k, prefix_frac=prefix_frac,
-                                return_stats=return_stats)
+        Q = self._series(Q)
+        if self.index is not None:
+            cascade = ops._krdtw_knn_cascade \
+                if self.index.kind in ("krdtw", "sp_krdtw") \
+                else ops._knn_cascade
+            return cascade(Q, self.index, impl=impl, seed_k=seed_k,
+                           prefix_frac=prefix_frac,
+                           return_stats=return_stats)
+        D = self.gram(Q, impl=impl)
+        nn = torch.argmin(D, dim=1).to(torch.int32)
+        nnd = D.gather(1, nn[:, None].long())[:, 0]
+        if not return_stats:
+            return nn, nnd
+        return nn, nnd, {"n_queries": int(Q.shape[0]),
+                         "n_candidates": self.corpus_size,
+                         "pre_dp_prune": 0.0,
+                         "dp_pairs": int(Q.shape[0]) * self.corpus_size}
 
     def classify(self, Q, *, impl: str = "auto",
                  via: str = "auto") -> np.ndarray:
@@ -193,9 +261,6 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
                      it). Pass ``"cpu"`` for the plain versions.
     """
     from repro_torch.kernels import backends as bk
-    if spec.family not in _MINPLUS_FAMILIES:
-        raise NotImplementedError(f"family {spec.family!r} is not ported "
-                                  f"yet (this port fits {_MINPLUS_FAMILIES})")
     dev = resolve_device(device)
     if corpus is not None:
         corpus = _as_series(corpus, dev)
@@ -230,14 +295,18 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
         raise ValueError("could not infer the series length; pass corpus "
                          "or T")
     w = None if sp is None else sp.weights.to(dev)
-    if bsp is not None:
-        plan = bsp
-    elif w is not None:
-        plan = bk.resolve_plan(weights=w, tile=spec.tile)
-    else:
-        plan = bk.resolve_plan(T=T, tile=spec.tile)
+    # only the min-plus families execute on the block plan; the kernel
+    # and baseline engines dispatch on support / radius
+    plan = None
+    if spec.family in _CASCADE_FAMILIES:
+        if bsp is not None:
+            plan = bsp
+        elif w is not None:
+            plan = bk.resolve_plan(weights=w, tile=spec.tile)
+        else:
+            plan = bk.resolve_plan(T=T, tile=spec.tile)
     index = None
-    if corpus is not None:
+    if corpus is not None and spec.family in _CASCADE_FAMILIES:
         if w is None and spec.is_sparse:
             # bsp-only fit: reassemble the grid so the cascade's bounds
             # see the real weights
@@ -245,6 +314,20 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
             w = sp.weights
         iw = w if w is not None else np.ones((T, T), np.float32)
         index = build_corpus_index(corpus, iw, kind=spec.family, bsp=plan)
+    elif corpus is not None and d == 1 and \
+            spec.family in ("krdtw", "sp_krdtw"):
+        # kernel-measure index (DESIGN.md §14): unit weights over the
+        # support, a plan for them, and nu; build_corpus_index computes
+        # the K1/K2 slacks from the same support
+        if spec.family == "sp_krdtw":
+            if sp is None:
+                raise ValueError("sp_krdtw fit did not resolve a support")
+            sup_w = sp.support.detach().cpu().numpy().astype(np.float32)
+        else:
+            sup_w = np.ones((T, T), np.float32)
+        index = build_corpus_index(
+            corpus, sup_w, kind=spec.family,
+            bsp=bk.resolve_plan(weights=sup_w, tile=spec.tile), nu=spec.nu)
     return SimilarityEngine(
         spec=spec, T=T, d=d, sp=sp, weights=w, bsp=plan, corpus=corpus,
         labels=None if labels is None else np.asarray(labels),

@@ -2,7 +2,8 @@
 
 The counterpart of ``repro.core.measures.CorpusIndex`` /
 ``build_corpus_index`` for the min-plus cascade
-(``repro_torch.kernels.ops._knn_cascade``). The static artifacts (weight
+(``repro_torch.kernels.ops._knn_cascade``) and the log-semiring kernel
+cascade (``_krdtw_knn_cascade``). The static artifacts (weight
 grid, tile plan, support windows, endpoint weights) describe the measure;
 the envelopes are per-candidate rows.
 """
@@ -22,7 +23,7 @@ from .occupancy import BlockSparsePaths, block_sparsify, default_tile
 class CorpusIndex:
     """Everything the lower-bound cascade needs about a fixed corpus.
 
-    kind:            "dtw" or "spdtw".
+    kind:            "dtw", "spdtw", "krdtw" or "sp_krdtw".
     corpus:          (Nc, T[, d]) f32 candidate set, on the index device.
     weights:         dense (T, T) weight grid (0 = outside the support),
                      on the index device.
@@ -34,6 +35,12 @@ class CorpusIndex:
     wmin_cols:       the per-column counterparts; the cascade envelopes
                      the *query* under these for the reverse Keogh bound.
     w00, wTT:        endpoint weights (LB_Kim).
+    nu, log_s1,
+    log_s2:          kernel-measure bound terms (DESIGN.md §14): for
+                     krdtw / sp_krdtw indexes the bandwidth and the
+                     proven K1/K2 slacks of the log-semiring lower bound
+                     (``bounds.krdtw_log_slacks``); 0.0 for the min-plus
+                     measures.
     """
     kind: str
     corpus: torch.Tensor
@@ -49,6 +56,9 @@ class CorpusIndex:
     wmin_cols: np.ndarray
     w00: float
     wTT: float
+    nu: float = 0.0
+    log_s1: float = 0.0
+    log_s2: float = 0.0
 
     @property
     def size(self) -> int:
@@ -64,12 +74,15 @@ class CorpusIndex:
 def build_corpus_index(corpus: torch.Tensor, weights,
                        kind: str = "spdtw",
                        bsp: Optional[BlockSparsePaths] = None,
-                       tile: Optional[int] = None) -> CorpusIndex:
+                       tile: Optional[int] = None,
+                       nu: Optional[float] = None) -> CorpusIndex:
     """Construct the search index for a corpus under a (T, T) weight grid.
 
     ``corpus`` (Nc, T) or (Nc, T, d) is indexed on its own device;
     ``weights`` may be a tensor or an array (its host copy drives the
-    windows and the plan).
+    windows and the plan). Kernel kinds (krdtw / sp_krdtw) need the
+    bandwidth ``nu``: the K1/K2 slacks of their bound are computed here,
+    once, from the support.
     """
     if isinstance(weights, torch.Tensor):
         w = weights.detach().cpu().numpy().astype(np.float32)
@@ -85,9 +98,16 @@ def build_corpus_index(corpus: torch.Tensor, weights,
     env_lo, env_hi = bounds.envelopes(corpus, lo, hi)
     if bsp is None:
         bsp = block_sparsify(w, tile=tile or default_tile(T))
+    log_s1 = log_s2 = 0.0
+    if kind in ("krdtw", "sp_krdtw"):
+        if nu is None:
+            raise ValueError("kernel indexes need the bandwidth nu")
+        log_s1, log_s2 = bounds.krdtw_log_slacks(
+            support if kind == "sp_krdtw" else None, T=T)
     return CorpusIndex(
         kind=kind, corpus=corpus,
         weights=torch.as_tensor(w, device=corpus.device), bsp=bsp,
         lo=lo, hi=hi, wmin_rows=wmin_rows, env_lo=env_lo, env_hi=env_hi,
         lo_t=lo_t, hi_t=hi_t, wmin_cols=wmin_cols,
-        w00=float(w[0, 0]), wTT=float(w[-1, -1]))
+        w00=float(w[0, 0]), wTT=float(w[-1, -1]),
+        nu=float(nu or 0.0), log_s1=log_s1, log_s2=log_s2)

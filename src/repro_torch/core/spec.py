@@ -6,9 +6,8 @@ recursion), the support source (where the sparse search space comes
 from), and every meta-parameter. ``repro_torch.core.engine.fit(spec,
 corpus)`` turns a spec plus data into a ``SimilarityEngine``.
 
-This slice of the port fits and evaluates the min-plus families ``dtw``
-and ``spdtw``; the other names are accepted so that a spec written for
-the reference reads the same here, and ``fit`` refuses them.
+Every family of the reference fits here: the min-plus DPs, the K_rdtw
+kernels and the baselines.
 """
 from __future__ import annotations
 

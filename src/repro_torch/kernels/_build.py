@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of every entry point, by library
 SIGNATURES = {
     "spdtw_tiles": {
@@ -37,6 +38,14 @@ SIGNATURES = {
                              _I, _I, _I, _I, _P, _P),
         "spdtw_tiles_paired": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
                                _I, _I, _P, _P),
+    },
+    "krdtw_wavefront": {
+        "krdtw_gram": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
+        "krdtw_paired": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
+    },
+    "dtw_wavefront": {
+        "dtw_wavefront": (_P, _P, _I, _I, _I, _I, _P, _P),
+        "dtw_banded": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     },
 }
 

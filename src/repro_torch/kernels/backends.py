@@ -5,11 +5,16 @@ The counterpart of ``repro.kernels.backends``. Three execute backends:
     dense   batched dense DPs over the full (T, T) grid (``core.dtw``);
             the numerical oracle. CPU tensors.
     scan    plain PyTorch loops over the active-tile schedule
-            (``gram_block.gram_spdtw_scan`` and friends); the CPU
-            production path, and the plain versions every CUDA kernel is
-            held against. CPU tensors.
-    cuda    the hand-written Hopper kernels (``csrc/spdtw_tiles.cu``).
-            CUDA tensors.
+            (``gram_block.gram_spdtw_scan`` and friends) and the core
+            row recursions of the DTW_sc and K_rdtw families; the CPU
+            production path. CPU tensors.
+    cuda    the hand-written Hopper kernels: K1/K2 (``csrc/
+            spdtw_tiles.cu``), K3/K4 (``csrc/krdtw_wavefront.cu``), K5/K6
+            (``csrc/dtw_wavefront.cu``). CUDA tensors.
+
+Every kernel keeps a plain PyTorch version beside its wrapper (the
+``*_scan`` / ``*_plain`` functions); the wrapper runs it for a CPU
+tensor, and the card-side checks hold the kernel against it.
 
 ``impl="auto"`` resolves to ``cuda`` for a CUDA tensor and to ``scan`` for
 a CPU tensor. A backend serves the tensors of its own device type only,
@@ -58,11 +63,14 @@ _REGISTRY = {b.name: b for b in (
             "batched dense DPs over the full grid; the oracle"),
     Backend("scan", "cpu",
             frozenset({MULTIVARIATE, EARLY_ABANDON, PRUNED_DP}), "dense",
-            "plain PyTorch over the active-tile schedule; the plain "
-            "versions of the CUDA kernels"),
+            "plain PyTorch over the active-tile schedule and the core "
+            "row recursions (DTW_sc, K_rdtw)"),
     Backend("cuda", "cuda",
             frozenset({MULTIVARIATE, EARLY_ABANDON, PRUNED_DP}), None,
-            "hand-written Hopper kernels (csrc/spdtw_tiles.cu)"),
+            "hand-written Hopper kernels: K1/K2 SP-DTW tiles "
+            "(csrc/spdtw_tiles.cu), K3/K4 log K_rdtw wavefronts "
+            "(csrc/krdtw_wavefront.cu), K5/K6 DTW wavefront and "
+            "Sakoe-Chiba strip (csrc/dtw_wavefront.cu)"),
 )}
 
 # legacy spelling accepted wherever an ``impl=`` flows in

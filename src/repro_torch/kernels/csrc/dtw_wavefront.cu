@@ -1,0 +1,295 @@
+// DTW baselines for Hopper (sm_90a): the anti-diagonal wavefront DTW over
+// aligned pairs (``dtw_wavefront``) and the slanted-strip Sakoe-Chiba DTW
+// over aligned pairs or an all-pairs grid (``dtw_banded``).
+//
+// What they replace.
+//   dtw_wavefront <- src/repro/kernels/dtw_wavefront.py _wavefront_kernel
+//                    (entry wavefront_dtw), the TPU kernel K5.
+//   dtw_banded    <- src/repro/kernels/dtw_banded.py _banded_kernel
+//                    (entry banded_dtw), the TPU kernel K6.
+// Each repeats its plain PyTorch version (``dtw_wavefront.
+// wavefront_dtw_plain``, ``dtw_banded.banded_dtw_plain``) operation by
+// operation, so the results are bit-identical to them.
+//
+// What bounds them on this card. Per needed cell: d subtractions, d
+// multiplications and d - 1 additions for the cost, then min and add (K5:
+// 2 min + 1 add; K6: the Hillis-Steele scan adds about 4 log2(2w+1)
+// operations per cell). The inputs are a few MB of series and the outputs
+// one float per pair, so these are instruction-bound kernels; K6's rows
+// also wait on log2(2w+1) dependent shuffle steps.
+//
+// What the design does about it. The TPU kernels put 8 pairs on the
+// sublanes and a diagonal (K5) or a strip row (K6) on the lanes. Here:
+//   K5: one warp owns one pair; lane l holds diagonal positions
+//       i = l * C .. l * C + C - 1 (C = 1, 2, 4, 8 or 16; T <= 512). The
+//       i - 1 neighbour is a register or one __shfl_up_sync. The Sakoe-Chiba
+//       radius is the test |2i - k| <= r on each position.
+//   K6: a group of G lanes owns one pair (G the power of two >= 2w+1, at
+//       most 32, so several pairs share a warp when the strip is narrow);
+//       lane l holds strip cells u = c * G + l (C = ceil((2w+1)/G) <= 8).
+//       With C = 1 the in-row scan and the top neighbour are shuffles inside
+//       the group; with C > 1 they go through per-pair shared memory. In
+//       the Gram mode pair p is (A row p / Nb, B row p % Nb), so the dtw_sc
+//       Gram never expands the series into a pair batch.
+// Series are read from device memory through L1: each pair rereads its own
+// two rows, which stay cached.
+//
+// Floating point. The cost uses the _rn intrinsics and the file is built
+// with --fmad=false, so the channel sum rounds as the plain version's does.
+//
+// C interface (bound with ctypes): every function returns
+// cudaGetLastError() after its launch (0 = launched).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kInf = 1.0e30f;
+constexpr int kWarps = 4;               // warps per thread block
+
+// squared distance of x[i] and y[j], channels summed left to right;
+// +INF when any channel of y reads >= INF (the reference's pad test)
+__device__ __forceinline__ float cost(const float* __restrict__ x,
+                                      const float* __restrict__ y, int i,
+                                      int j, int d) {
+  float acc = 0.f;
+  bool ok = true;
+  for (int ch = 0; ch < d; ++ch) {
+    const float yv = __ldg(y + (size_t)j * d + ch);
+    ok = ok && yv < kInf;
+    const float df = __fsub_rn(__ldg(x + (size_t)i * d + ch), yv);
+    const float sq = __fmul_rn(df, df);
+    acc = ch == 0 ? sq : __fadd_rn(acc, sq);
+  }
+  return ok ? acc : kInf;
+}
+
+// ---------------------------------------------------------------- K5 ----
+
+template <int C>
+__global__ void __launch_bounds__(kWarps * 32)
+wavefront_kernel(const float* __restrict__ X, const float* __restrict__ Y,
+                 int P, int T, int d, int radius, float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * kWarps + warp;
+  if (p >= P) return;
+  const float* x = X + p * T * d;
+  const float* y = Y + p * T * d;
+  float dm1[C], dm2[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const bool first = lane == 0 && c == 0;   // cell (0, 0), always valid
+    dm1[c] = first ? cost(x, y, 0, 0, d) : kInf;
+    dm2[c] = kInf;
+  }
+  for (int k = 1; k < 2 * T - 1; ++k) {
+    float u1 = __shfl_up_sync(0xffffffffu, dm1[C - 1], 1);
+    float u2 = __shfl_up_sync(0xffffffffu, dm2[C - 1], 1);
+    if (lane == 0) { u1 = kInf; u2 = kInf; }
+    float dk[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = lane * C + c;
+      const int j = k - i;
+      bool valid = i < T && j >= 0 && j < T;
+      if (radius >= 0) valid = valid && abs(2 * i - k) <= radius;
+      const float cst = valid ? cost(x, y, i, j, d) : kInf;
+      const float sh1 = c ? dm1[c - 1] : u1;
+      const float sh2 = c ? dm2[c - 1] : u2;
+      const float best = fminf(fminf(sh1, dm1[c]), sh2);
+      dk[c] = fminf(__fadd_rn(cst, best), kInf);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      dm2[c] = dm1[c];
+      dm1[c] = dk[c];
+    }
+  }
+  float res = kInf;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (lane * C + c == T - 1) res = dm1[c];
+  res = __shfl_sync(0xffffffffu, res, (T - 1) / C);
+  if (lane == 0) out[p] = res;
+}
+
+template <int C>
+int wavefront_c(const float* X, const float* Y, int P, int T, int d,
+                int radius, float* out, cudaStream_t stream) {
+  const long long grid = ((long long)P + kWarps - 1) / kWarps;
+  wavefront_kernel<C><<<dim3((unsigned)grid), dim3(kWarps * 32), 0,
+                        stream>>>(X, Y, P, T, d, radius, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K6 ----
+
+// One pair's strip sweep by a group of G lanes. Returns D(T-1, T-1) on
+// every lane of the group.
+template <int G, int C>
+__device__ float strip_pair(const float* __restrict__ x,
+                            const float* __restrict__ y, int T, int d, int w,
+                            int lane, unsigned gmask, float* buf) {
+  const int W = 2 * w + 1;
+  float* sd = buf;              // C > 1: the previous row
+  float* sm = buf + C * G;      //        the scan's m
+  float* ss = buf + 2 * C * G;  //        the scan's s
+  float dprev[C], cst[C], mm[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) dprev[c] = kInf;
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int u = c * G + lane;
+      const int j = t - w + u;
+      cst[c] = (u < W && j >= 0 && j < T) ? cost(x, y, t, j, d) : kInf;
+    }
+    if (t == 0) {
+      // only cell (0, 0) (u = w) starts a path
+#pragma unroll
+      for (int c = 0; c < C; ++c) mm[c] = c * G + lane == w ? cst[c] : kInf;
+    } else {
+      // top neighbour D_{t-1}[u+1] (+INF past the strip), and D_{t-1}[u]
+      float top[C];
+      if constexpr (C == 1) {
+        const float dn = __shfl_down_sync(gmask, dprev[0], 1, G);
+        top[0] = lane + 1 < W ? dn : kInf;
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) sd[c * G + lane] = dprev[c];
+        __syncwarp(gmask);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int u = c * G + lane;
+          top[c] = u + 1 < W ? sd[u + 1] : kInf;
+        }
+        __syncwarp(gmask);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        mm[c] = __fadd_rn(cst[c], fminf(top[c], dprev[c]));
+    }
+    // Hillis-Steele min-plus scan, the association of
+    // spdtw_block._minplus_scan_lanes: m = min(m, m_sh + s) with the old
+    // s, then s = min(s_sh + s, INF)
+    float s[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c] = cst[c];
+    for (int dd = 1; dd < W; dd <<= 1) {
+      if constexpr (C == 1) {
+        float m_sh = __shfl_up_sync(gmask, mm[0], dd, G);
+        float s_sh = __shfl_up_sync(gmask, s[0], dd, G);
+        if (lane < dd) { m_sh = kInf; s_sh = 0.f; }
+        const float nm = fminf(mm[0], __fadd_rn(m_sh, s[0]));
+        s[0] = fminf(__fadd_rn(s_sh, s[0]), kInf);
+        mm[0] = nm;
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          sm[c * G + lane] = mm[c];
+          ss[c * G + lane] = s[c];
+        }
+        __syncwarp(gmask);
+        float nm[C], ns[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int u = c * G + lane;
+          const float m_sh = u >= dd ? sm[u - dd] : kInf;
+          const float s_sh = u >= dd ? ss[u - dd] : 0.f;
+          nm[c] = fminf(mm[c], __fadd_rn(m_sh, s[c]));
+          ns[c] = fminf(__fadd_rn(s_sh, s[c]), kInf);
+        }
+        __syncwarp(gmask);
+#pragma unroll
+        for (int c = 0; c < C; ++c) { mm[c] = nm[c]; s[c] = ns[c]; }
+      }
+    }
+    // row 0 is not clamped (the reference's), later rows are
+#pragma unroll
+    for (int c = 0; c < C; ++c) dprev[c] = t == 0 ? mm[c] : fminf(mm[c], kInf);
+  }
+  float res = kInf;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (c * G + lane == w) res = dprev[c];
+  return __shfl_sync(gmask, res, w % G, G);
+}
+
+template <int G, int C>
+__global__ void __launch_bounds__(kWarps * 32)
+banded_kernel(const float* __restrict__ A, const float* __restrict__ B,
+              int Na, int Nb, int gram, int T, int d, int w,
+              float* __restrict__ out) {
+  extern __shared__ float smem[];
+  constexpr int PPW = 32 / G;           // pairs per warp
+  const int warp = threadIdx.x >> 5, l32 = threadIdx.x & 31;
+  const int gi = l32 / G, lane = l32 % G;
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu : (((1u << G) - 1u) << (gi * G));
+  const int slot = warp * PPW + gi;
+  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  const long long p = (long long)blockIdx.x * (kWarps * PPW) + slot;
+  if (p >= P) return;
+  const long long a = gram ? p / Nb : p;
+  const long long b = gram ? p % Nb : p;
+  float* buf = smem + (size_t)slot * (C > 1 ? 3 * C * G : 0);
+  const float v = strip_pair<G, C>(A + a * T * d, B + b * T * d, T, d, w,
+                                   lane, gmask, buf);
+  if (lane == 0) out[p] = v;
+}
+
+template <int G, int C>
+int banded_gc(const float* A, const float* B, int Na, int Nb, int gram,
+              int T, int d, int w, float* out, cudaStream_t stream) {
+  constexpr int PPB = kWarps * (32 / G);
+  const size_t smem = C > 1 ? (size_t)PPB * 3 * C * G * 4 : 0;
+  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  const long long grid = (P + PPB - 1) / PPB;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  banded_kernel<G, C><<<dim3((unsigned)grid), dim3(kWarps * 32), smem,
+                        stream>>>(A, B, Na, Nb, gram, T, d, w, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// (P,) aligned-pair DTW on anti-diagonals: X, Y (P, T, d); radius < 0: no
+// corridor.
+int dtw_wavefront(const float* X, const float* Y, int P, int T, int d,
+                  int radius, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int per_lane = (T + 31) / 32;
+  if (T < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  if (per_lane <= 1) return wavefront_c<1>(X, Y, P, T, d, radius, out, st);
+  if (per_lane <= 2) return wavefront_c<2>(X, Y, P, T, d, radius, out, st);
+  if (per_lane <= 4) return wavefront_c<4>(X, Y, P, T, d, radius, out, st);
+  if (per_lane <= 8) return wavefront_c<8>(X, Y, P, T, d, radius, out, st);
+  if (per_lane <= 16) return wavefront_c<16>(X, Y, P, T, d, radius, out, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Sakoe-Chiba DTW of half-width w in the slanted strip. gram != 0: the
+// (Na, Nb) grid of A rows x B rows; gram == 0: the (Na,) aligned pairs
+// (A row p, B row p). A (Na, T, d), B (Nb, T, d).
+int dtw_banded(const float* A, const float* B, int Na, int Nb, int gram,
+               int T, int d, int w, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int W = 2 * w + 1;
+  if (T < 1 || d < 1 || w < 0) return (int)cudaErrorInvalidValue;
+#define BANDED(G, C) banded_gc<G, C>(A, B, Na, Nb, gram, T, d, w, out, st)
+  if (W <= 1) return BANDED(1, 1);
+  if (W <= 2) return BANDED(2, 1);
+  if (W <= 4) return BANDED(4, 1);
+  if (W <= 8) return BANDED(8, 1);
+  if (W <= 16) return BANDED(16, 1);
+  if (W <= 32) return BANDED(32, 1);
+  if (W <= 64) return BANDED(32, 2);
+  if (W <= 128) return BANDED(32, 4);
+  if (W <= 256) return BANDED(32, 8);
+#undef BANDED
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

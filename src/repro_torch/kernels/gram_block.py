@@ -1,4 +1,5 @@
-"""Fused block-sparse all-pairs SP-DTW Gram: kernel K1 and its plain twins.
+"""All-pairs Gram engines: kernel K1 (block-sparse SP-DTW) and kernel K3
+(log K_rdtw), with their plain twins.
 
 The counterpart of ``repro.kernels.gram_block`` for the min-plus engines.
 The paper's production workload (1-NN classification) is an all-pairs
@@ -19,6 +20,12 @@ path and the yardstick of the CUDA kernels):
 ``gram_spdtw_block`` is the wrapper of K1 (``spdtw_tiles_gram``): on CUDA
 tensors it launches the kernel (its prefix mode gives the stage-3 bound),
 on CPU tensors it runs the plain versions above.
+
+``gram_log_krdtw_block`` is the wrapper of K3 (``krdtw_gram`` in
+``csrc/krdtw_wavefront.cu``), the all-pairs log K_rdtw / K_rdtw_sc /
+SP-K_rdtw Gram of the SVM path; its plain version
+``gram_log_krdtw_plain`` runs ``krdtw_wavefront.krdtw_sweep`` over the
+pair expansion in chunks.
 
 Early abandoning (DESIGN.md §4): at the first tile of each tile row the
 running row-min of the bottom edges lower-bounds the final value, so pairs
@@ -391,3 +398,60 @@ def gram_spdtw_block(A: torch.Tensor, B: torch.Tensor, bsp: BlockSparsePaths,
     return gram_spdtw_cuda(Ap, Bp, bsp, d=d, g_out=g_out,
                            r=(T_orig - 1) % S, n_steps=meta.shape[0],
                            thr=thr, alive0=al)
+
+
+# ---------------------------------------------------------------------------
+# K3: the all-pairs log K_rdtw / SP-K_rdtw Gram
+# ---------------------------------------------------------------------------
+
+def gram_log_krdtw_plain(A: torch.Tensor, B: torch.Tensor, nu: float,
+                         support=None, radius: Optional[int] = None,
+                         block: int = 65536) -> torch.Tensor:
+    """(Na, Nb) log K_rdtw Gram, plain version of K3: ``krdtw_sweep``
+    over the pair expansion (pair p = a * Nb + b), ``block`` pairs at a
+    time. ``support``: the (T, T) bool support (None = full grid);
+    ``radius``: an optional Sakoe-Chiba corridor."""
+    from .krdtw_wavefront import (mask_to_diagonal_major,
+                                  wavefront_log_krdtw_plain)
+    Na, Nb = A.shape[0], B.shape[0]
+    md = None if support is None else mask_to_diagonal_major(
+        np.asarray(support.cpu() if isinstance(support, torch.Tensor)
+                   else support))
+    out = torch.empty((Na * Nb,), dtype=torch.float32, device=A.device)
+    rows = max(1, block // max(Nb, 1))
+    for s in range(0, Na, rows):
+        a = A[s:s + rows]
+        x = a.repeat_interleave(Nb, dim=0)
+        y = B.repeat(a.shape[0], 1)
+        out[s * Nb:(s + a.shape[0]) * Nb] = wavefront_log_krdtw_plain(
+            x, y, nu, radius=radius, mask_diag=md)
+    return out.reshape(Na, Nb)
+
+
+def gram_log_krdtw_block(A: torch.Tensor, B: torch.Tensor, nu: float,
+                         support=None,
+                         radius: Optional[int] = None) -> torch.Tensor:
+    """All-pairs log K_rdtw / SP-K_rdtw Gram matrix through K3
+    (``krdtw_gram``), without expanding the pairs.
+
+    A: (Na, T), B: (Nb, T) univariate. ``support`` is the learned (T, T)
+    sparse support (None = full grid); ``radius`` an optional Sakoe-Chiba
+    corridor. Returns (Na, Nb) log-kernel values. CUDA tensors launch the
+    kernel; CPU tensors run the plain version.
+    """
+    if A.shape[1:] != B.shape[1:]:
+        raise ValueError(f"A {tuple(A.shape)} and B {tuple(B.shape)} "
+                         f"differ in length or channels")
+    if not A.is_cuda:
+        return gram_log_krdtw_plain(A, B, nu, support=support, radius=radius)
+    from .krdtw_wavefront import (krdtw_cuda, mask_to_diagonal_major,
+                                  pack_diagonal_mask)
+    T = A.shape[1]
+    bits = None
+    if support is not None:
+        sup = support.cpu() if isinstance(support, torch.Tensor) else support
+        bits = pack_diagonal_mask(mask_to_diagonal_major(np.asarray(sup)), T,
+                                  A.device)
+    return krdtw_cuda(A.to(torch.float32).contiguous(),
+                      B.to(device=A.device, dtype=torch.float32).contiguous(),
+                      nu, radius=radius, mask_bits=bits, gram=True)

@@ -202,6 +202,11 @@ def test_port_sources_import_neither_jax_nor_repro():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.');"
             "import repro_torch, repro_torch.convert, repro_torch.kernels.ops;"
+            "import repro_torch.classify.svm, repro_torch.classify.crossval;"
+            "import repro_torch.core.krdtw, repro_torch.core.baselines;"
+            "import repro_torch.kernels.krdtw_wavefront;"
+            "import repro_torch.kernels.dtw_wavefront;"
+            "import repro_torch.kernels.dtw_banded;"
             "import chip_smoke;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
