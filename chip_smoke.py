@@ -7,7 +7,7 @@
 Phases (each one fails the run on a mismatch, with a nonzero exit):
 
 1. Environment and build: the card's name and power limit, the torch and
-   CUDA versions; builds the three sources of
+   CUDA versions; builds the four sources of
    ``src/repro_torch/kernels/csrc`` (one nvcc each, started together) and
    prints the build times and the compiler's register report.
 2. Kernels against their plain PyTorch versions, on the card:
@@ -22,8 +22,17 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    - K5 (``dtw_wavefront``) and K6 (``dtw_banded``, pairs and Gram) against
      ``wavefront_dtw_plain`` / ``banded_dtw_plain`` over the radius grid
      up to w = 26, at d in {1, 3}.
-   The limit is rel 1e-6 for K1, K2, K5, K6 and rel 1e-5 for K3, K4 (exp
-   and log on both sides); the expected difference is 0 everywhere.
+   - K7 (``soft_tiles_fwd``), K8 (``soft_tiles_stash``) and K9
+     (``soft_tiles_bwd``) against ``gram_soft_spdtw_scan`` /
+     ``soft_spdtw_paired_scan``, ``gram_soft_fwd_stash`` /
+     ``soft_spdtw_fwd_stash`` and ``gram_soft_bwd_scan`` /
+     ``soft_spdtw_bwd_block`` (values, stash, gx / gy / gw, E blocks) at
+     (S, d, T) in {(8, 1, 40), (16, 1, 70), (16, 3, 70)}, Gram and paired
+     mode, on a random support, a masked corner cell, a ragged T_orig and
+     an inactive corner tile.
+   The limit is rel 1e-6 for K1, K2, K5, K6, rel 1e-5 for K3, K4 (exp
+   and log on both sides) and K7, K8, and rtol 1e-4 / atol 1e-5 for K9's
+   gradients and E blocks (f32 sums in another order).
 3. The SP-DTW main path at the UCR TwoPatterns shape (1000 train / 4000
    test, T = 128, 4 classes): ``fit`` learns the support from all
    499,500 train pairs on the card, ``engine.gram`` runs K1 over
@@ -43,12 +52,22 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    ``-gram_log`` argmin bit for bit, and the DTW / DTW_sc baselines (K5
    pairs, K6 pairs and the dtw_sc Gram). Each stage is timed with CUDA
    events.
+3c. The centroid and soft-Gram path at the same shape: ``fit_centroids``
+   (4 classes x 60 Adam steps through K8 / K9 in paired mode, K1
+   medoids), the centroid-seeded cascade (neighbours equal to phase 3's
+   cascade and the Gram argmin, bit for bit), nearest-centroid and 1-NN
+   classification, the 4000 x 1000 soft Gram without a gradient (K7; every
+   value at most the hard Gram's, 1e-3 relative slack) and the 1000 x 1000
+   train soft Gram with a gradient (K8, K9) on the 10 %-share support, gA
+   held against the plain backward on 64 rows, gw zero outside the
+   support.
    For each path the launch counters are set to 0 just before and read
    just after, and each of its kernels must have launched. Then a
    torch.profiler pass gives the device time by kernel and the device's
    idle share for calls of both paths.
 4. Timing at the paths' shapes: each kernel against its plain version,
-   with its bound; one JSON line ``{"kernels": ...}`` of all six kernels.
+   with its bound; one JSON line ``{"kernels": ...}`` of all nine
+   kernels.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
@@ -95,8 +114,15 @@ KERNELS = {
                       CSRC + "dtw_wavefront.cu"),
     "dtw_banded": ("src/repro/kernels/dtw_banded.py:41",
                    CSRC + "dtw_wavefront.cu"),
+    "soft_tiles_fwd": ("src/repro/kernels/soft_block.py:806",
+                       CSRC + "soft_tiles.cu"),
+    "soft_tiles_stash": ("src/repro/kernels/soft_block.py:915",
+                         CSRC + "soft_tiles.cu"),
+    "soft_tiles_bwd": ("src/repro/kernels/soft_block.py:998",
+                       CSRC + "soft_tiles.cu"),
 }
-LIBRARIES = ("spdtw_tiles", "krdtw_wavefront", "dtw_wavefront")
+LIBRARIES = ("spdtw_tiles", "krdtw_wavefront", "dtw_wavefront", "soft_tiles")
+SOFT = ("soft_tiles_fwd", "soft_tiles_stash", "soft_tiles_bwd")
 # the kernels of the SP-DTW path (phase 3) and of the kernel-measure and
 # baseline path (phase 3b)
 SLICE1 = ("spdtw_tiles_gram", "spdtw_tiles_paired")
@@ -104,6 +130,12 @@ SLICE2 = ("spdtw_tiles_gram", "krdtw_gram", "krdtw_paired", "dtw_wavefront",
           "dtw_banded")
 # K3 / K4 against their plain versions (exp / log on both sides)
 KREL_LIMIT = 1e-5
+# K7 / K8 values and stash against the plain versions (rel); K9's
+# gradients and E blocks (f32 sums in another order): |got - want| <=
+# GRAD_RTOL |want| + GRAD_ATOL
+SOFT_REL_LIMIT = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+SOFT_GAMMA = 0.1
 
 
 def log(*a):
@@ -272,6 +304,8 @@ def phase_kernels():
         worst[k] = [max(a, b) for a, b in zip(worst[k], w[k])]
     for k, v in _check_slice2().items():
         worst[k] = [max(a, b) for a, b in zip(worst[k], v)]
+    for k, v in _check_soft().items():
+        worst[k] = [max(a, b) for a, b in zip(worst[k], v)]
     log(f"phase 2 ok: worst (abs, rel) {worst}")
     return worst
 
@@ -358,6 +392,166 @@ def _check_slice2():
                        kb.banded_dtw_gram_plain(x[:6], y, r), REL_LIMIT)
     log(f"  K3 == K4 bit for bit on every case")
     return worst
+
+
+def _soft_diff(got, want, rtol, atol):
+    """(max abs, max rel, worst excess over rtol |want| + atol) of two
+    tensors of equal shape; entries that are +INF on both sides (no
+    admissible path) are equal, an INF on one side only fails."""
+    import torch
+    g, w = got.double(), want.double()
+    inf_g, inf_w = g >= 1e29, w >= 1e29
+    if not torch.equal(inf_g, inf_w):
+        return float("inf"), float("inf"), float("inf")
+    ok = ~inf_w
+    d = (g - w).abs()[ok]
+    if d.numel() == 0:
+        return 0.0, 0.0, -1.0
+    aw = w.abs()[ok]
+    rel = d / aw.clamp_min(1e-30)
+    return float(d.max()), float(rel.max()), \
+        float((d - rtol * aw - atol).max())
+
+
+def _check_soft():
+    """K7 / K8 / K9 against their plain versions at (S, d, T) in {(8, 1,
+    40), (16, 1, 70), (16, 3, 70)}, in Gram and paired mode, on a random
+    support, on one whose corner cell is masked (the result tile active
+    but its cell unreachable), at ragged T_orig = T - 3, and on one whose
+    corner tile is inactive (no launch: +INF values, zero gradients).
+    Values and stash at rel SOFT_REL_LIMIT, K7 = K8 bit for bit; K9's
+    gradients and E blocks at GRAD_RTOL / GRAD_ATOL. Every comparison is
+    printed before the first failure is raised."""
+    import numpy as np
+    import torch
+    from repro_torch.core.occupancy import block_sparsify
+    from repro_torch.kernels import soft_block as sb
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(2)
+    worst = {k: [0.0, 0.0] for k in SOFT}
+    fails = []
+    bits = {"K7 vs plain": True, "K8 vs plain": True}
+
+    def record(kernel, what, got, want, rtol, atol=0.0):
+        ab, rel, exc = _soft_diff(got, want, rtol, atol)
+        worst[kernel][0] = max(worst[kernel][0], ab)
+        worst[kernel][1] = max(worst[kernel][1], rel)
+        log(f"  {what}: max abs {ab:.3g} max rel {rel:.3g}")
+        if exc > 0:
+            fails.append(f"{what}: beyond rtol {rtol} atol {atol}")
+
+    gamma = SOFT_GAMMA
+    for S, d, T in ((8, 1, 40), (16, 1, 70), (16, 3, 70)):
+        w_rand = _random_support(T, seed=10 * S + d)
+        w_cell = w_rand.copy()
+        w_cell[T - 1, T - 1] = 0.0
+        w_cell[T - 2, T - 1] = w_cell[T - 1, T - 2] = 0.0
+        for sup, w, T_orig in (("random", w_rand, T),
+                               ("corner cell masked", w_cell, T),
+                               ("ragged", w_rand, T - 3)):
+            bsp = block_sparsify(w, tile=S)
+            shape = (lambda n: (n, T_orig)) if d == 1 else \
+                (lambda n: (n, T_orig, d))
+            A = torch.as_tensor(rng.normal(size=shape(6)).astype(np.float32),
+                                device=dev)
+            B = torch.as_tensor(rng.normal(size=shape(9)).astype(np.float32),
+                                device=dev)
+            lab = f"S={S} d={d} T={T} T_orig={T_orig} {sup}"
+            G7 = sb.gram_soft_spdtw_block(A, B, bsp, gamma)
+            Gp = sb.gram_soft_spdtw_scan(A, B, bsp, gamma)
+            record("soft_tiles_fwd", f"K7 gram {lab}", G7, Gp,
+                   SOFT_REL_LIMIT)
+            bits["K7 vs plain"] &= torch.equal(G7, Gp)
+            P7 = sb.soft_spdtw_paired_block(A, B[:6], bsp, gamma)
+            Pp = sb.soft_spdtw_paired_scan(A, B[:6], bsp, gamma)
+            record("soft_tiles_fwd", f"K7 paired {lab}", P7, Pp,
+                   SOFT_REL_LIMIT)
+            G8, L8 = sb.soft_fwd_stash_block(A, B, bsp, gamma, gram=True)
+            G8p, L8p = sb.gram_soft_fwd_stash(A, B, bsp, gamma)
+            if not torch.equal(G8, G7):
+                fails.append(f"K8 != K7 bit for bit, gram {lab}")
+            record("soft_tiles_stash", f"K8 gram values {lab}", G8, G8p,
+                   SOFT_REL_LIMIT)
+            record("soft_tiles_stash", f"K8 gram stash {lab}", L8, L8p,
+                   SOFT_REL_LIMIT)
+            bits["K8 vs plain"] &= torch.equal(L8, L8p)
+            P8, Q8 = sb.soft_fwd_stash_block(A, B[:6], bsp, gamma,
+                                             gram=False)
+            P8p, Q8p = sb.soft_spdtw_fwd_stash(A, B[:6], bsp, gamma)
+            if not torch.equal(P8, P7):
+                fails.append(f"K8 != K7 bit for bit, paired {lab}")
+            record("soft_tiles_stash", f"K8 paired stash {lab}", Q8, Q8p,
+                   SOFT_REL_LIMIT)
+            # K9 with the kernel's stash against the plain reverse scan
+            # with the plain stash
+            gbar = torch.as_tensor(rng.normal(size=(6, 9)).astype(
+                np.float32), device=dev) * (G8p < 1e29)
+            gk = sb.soft_bwd_block(A, B, bsp, gamma, L8, gbar, gram=True)
+            gp = sb.gram_soft_bwd_scan(A, B, bsp, gamma, L8p, gbar)
+            for name, a, b in zip(("gA", "gB", "gw"), gk, gp):
+                record("soft_tiles_bwd", f"K9 gram {name} {lab}", a, b,
+                       GRAD_RTOL, GRAD_ATOL)
+            pbar = gbar[:, 0].contiguous()
+            gk = sb.soft_bwd_block(A, B[:6], bsp, gamma, Q8, pbar,
+                                   gram=False)
+            gp = sb.soft_spdtw_bwd_block(A, B[:6], bsp, gamma, Q8p, pbar)
+            for name, a, b in zip(("gx", "gy", "gw"), gk, gp):
+                record("soft_tiles_bwd", f"K9 paired {name} {lab}", a, b,
+                       GRAD_RTOL, GRAD_ATOL)
+            record("soft_tiles_bwd", f"K9 E blocks {lab}",
+                   _kernel_eblocks(A, B[:6], bsp, gamma, Q8, T_orig),
+                   _plain_eblocks(A, B[:6], bsp, gamma, Q8p, T_orig),
+                   GRAD_RTOL, GRAD_ATOL)
+        # the corner tile inactive: no launch, +INF and zero gradients
+        w_off = w_rand.copy()
+        w_off[-S:, -S:] = 0.0
+        bsp = block_sparsify(w_off, tile=S)
+        x = torch.as_tensor(rng.normal(size=(4, T) if d == 1 else
+                                       (4, T, d)).astype(np.float32),
+                            device=dev).requires_grad_()
+        v = sb.soft_spdtw_batch(x, x.detach().flip(0), w_off, gamma)
+        v.sum().backward()
+        if not (bool((v >= 1e29).all()) and bool((x.grad == 0).all())):
+            fails.append(f"corner tile inactive S={S} d={d}: values "
+                         f"{v.tolist()}")
+        log(f"  S={S} d={d} corner tile inactive: +INF, zero gradients")
+    log(f"  bit identity with the plain versions on every case: {bits}")
+    require(not fails, "; ".join(fails))
+    return worst
+
+
+def _kernel_eblocks(x, y, bsp, gamma, stash, T_orig):
+    """K9's E blocks (K, P, S, S) for aligned pairs with gbar = 1."""
+    import torch
+    from repro_torch.kernels import soft_block as sb
+    from repro_torch.kernels.backends import series_dim, to_tile_major
+    g_out = sb.result_tile_step(bsp.plan(), bsp.tile, T_orig)
+    S = bsp.tile
+    ones = torch.ones((x.shape[0],), dtype=torch.float32, device=x.device)
+    _, _, _, E = sb.soft_bwd_cuda(
+        to_tile_major(x, S, bsp.T), to_tile_major(y, S, bsp.T), bsp, stash,
+        ones, gram=False, d=series_dim(x), g_out=g_out,
+        r=(T_orig - 1) % S, gamma=gamma, eblocks=True)
+    return E.reshape(E.shape[0], E.shape[1], S, S)
+
+
+def _plain_eblocks(x, y, bsp, gamma, stash, T_orig):
+    """The plain reverse scan's E blocks (K, P, S, S), gbar = 1."""
+    import torch
+    from repro_torch.kernels import soft_block as sb
+    from repro_torch.kernels.backends import series_dim, to_tile_major
+    g_out = sb.result_tile_step(bsp.plan(), bsp.tile, T_orig)
+    S, d = bsp.tile, series_dim(x)
+    xp, yp = to_tile_major(x, S, bsp.T), to_tile_major(y, S, bsp.T)
+    _, _, _, E = sb._reverse_tile_scan(
+        bsp.reverse_plan(g_out), torch.as_tensor(bsp.blocks,
+                                                 device=x.device),
+        lambda ti, tj: (xp[:, ti * d * S:(ti + 1) * d * S],
+                        yp[:, tj * d * S:(tj + 1) * d * S]),
+        stash, torch.ones((x.shape[0],), device=x.device), x.shape[0],
+        bsp.T, S=S, ri=(T_orig - 1) % S, rj=(T_orig - 1) % S, gamma=gamma,
+        with_eblocks=True, d=d)
+    return E
 
 
 # ---------------------------------------------------------------------------
@@ -585,6 +779,203 @@ def phase_kernel_path(main):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: the centroid and soft-Gram path
+# ---------------------------------------------------------------------------
+
+# the train x train gradient runs on the support of this share of the
+# train pairs (8 tiles): the theta = 2 plan's 64 tiles would need ~66 GB of
+# stash at 1000 x 1000
+GRAD_THETA_SHARE = 0.1
+N_GRAD_CHECK = 64       # rows of gA held against the plain backward
+
+
+def phase_centroid_path(main):
+    """fit_centroids (4 classes, 60 Adam steps each: K8 / K9 in paired
+    mode, K1 for the medoids), the centroid-seeded cascade (K1, K2) whose
+    neighbours must equal phase 3's cascade and the Gram argmin, centroid
+    and knn classification, the soft Gram 4000 x 1000 without a gradient
+    (K7, held below the hard Gram), and the train x train soft Gram with
+    a gradient (K8 then K9 in Gram mode) on the 10 %-share support, with
+    gA held against the plain backward and gw zero outside the support.
+    Launch counters are set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import fit
+    from repro_torch.core.occupancy import block_sparsify, learn_sparse_paths
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import soft_block as sb
+    eng, ds, G = main["engine"], main["ds"], main["G"]
+    Xtr = eng.corpus
+    Xte = torch.as_tensor(ds.X_test, device=DEVICE)
+    gamma = float(eng.spec.gamma)
+    stage = {}
+
+    def timed(name, fn):
+        ms, out = cuda_ms(fn)
+        stage[name] = ms
+        log(f"  {name}: {ms:.1f} ms")
+        return out
+
+    reset_launch_counts()
+    ceng = timed("fit_centroids (4 classes x 60 steps; K8 / K9 paired, K1 "
+                 "medoids)", lambda: eng.fit_centroids(n_per_class=1,
+                                                       steps=60))
+    cm = ceng.centroid_model
+    log(f"  centroids: {cm.k}, labels {cm.labels.tolist()}, medoids "
+        f"{cm.medoids.tolist()}, gamma {gamma}")
+    require(cm.k == 4 and bool(torch.isfinite(cm.centroids).all()),
+            "centroids finite, one per class")
+    nn, nnd, stats = timed("engine.knn centroid-seeded cascade",
+                           lambda: ceng.knn(Xte, return_stats=True))
+    require(stats["n_centroids"] == 4, "stats n_centroids != 4")
+    require(torch.equal(nn, main["nn"]),
+            "centroid-seeded nn != phase 3 cascade nn")
+    ref_nn = torch.argmin(G, dim=1).to(torch.int32)
+    require(torch.equal(nn, ref_nn), "centroid-seeded nn != Gram argmin")
+    require(torch.equal(nnd, G.gather(1, ref_nn[:, None].long())[:, 0]),
+            "centroid-seeded nn distance != Gram minimum")
+    log(f"  centroid-seeded nn == phase 3 cascade == Gram argmin, bit for "
+        f"bit; stats {stats}")
+    pc = timed("engine.classify via centroid (K1 4000 x 4)",
+               lambda: ceng.classify(Xte, via="centroid"))
+    pk = timed("engine.classify via knn (the seeded cascade)",
+               lambda: ceng.classify(Xte, via="knn"))
+    cerr = float(np.mean(pc != ds.y_test))
+    kerr = float(np.mean(pk != ds.y_test))
+    log(f"  test error: nearest centroid {cerr:.4f}, 1-NN {kerr:.4f}")
+
+    def soft_gram():
+        with torch.no_grad():
+            return ceng.soft_gram(Xte)
+
+    Gs = timed(f"engine.soft_gram {N_TEST} x {N_TRAIN}, no gradient (K7)",
+               soft_gram)
+    fin = G < 1e29
+    require(tuple(Gs.shape) == tuple(G.shape), "soft Gram shape")
+    require(bool(torch.isfinite(Gs[fin]).all()),
+            "soft Gram not finite where the hard Gram is")
+    require(bool((Gs <= G + 1e-3 * G.abs()).all()),
+            "soft Gram above the hard Gram (beyond 1e-3 relative)")
+    log(f"  soft Gram <= hard Gram everywhere (1e-3 relative slack); max "
+        f"hard - soft {float((G - Gs)[fin].max()):.4g}, min "
+        f"{float((G - Gs)[fin].min()):.4g}")
+
+    # the train x train gradient on the 10 %-share support
+    n_pairs = N_TRAIN * (N_TRAIN - 1) // 2
+    sp = learn_sparse_paths(None, theta=GRAD_THETA_SHARE * n_pairs,
+                            gamma=eng.spec.weight_gamma,
+                            counts=eng.sp.counts)
+    geng = fit(eng.spec, Xtr, labels=ds.y_train, sp=sp, device=DEVICE)
+    bsp = geng.bsp
+    g_out = sb.result_tile_step(bsp.plan(), bsp.tile, T_MAIN)
+    walked = g_out + 1
+    stash_gb = N_TRAIN * N_TRAIN * walked * bsp.tile ** 2 * 4 / 1e9
+    log(f"  gradient support: theta {GRAD_THETA_SHARE:g} x pairs, "
+        f"{sp.n_cells} cells, {bsp.n_active} tiles; stash "
+        f"{N_TRAIN} x {N_TRAIN} pairs x {walked} walked tiles x "
+        f"{bsp.tile}^2 x 4 B = {stash_gb:.2f} GB")
+    gbar = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(N_TRAIN, N_TRAIN)).astype(np.float32), device=DEVICE)
+    A = Xtr.clone().requires_grad_()
+    W = geng.weights.clone().requires_grad_()
+    torch.cuda.reset_peak_memory_stats()
+    Gv = timed(f"soft_gram {N_TRAIN} x {N_TRAIN} with grad, forward (K8)",
+               lambda: sb.soft_spdtw_gram_batch(A, Xtr, W, gamma))
+    timed(f"soft_gram {N_TRAIN} x {N_TRAIN} backward (K9)",
+          lambda: (Gv * gbar).sum().backward())
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    require(bool(torch.isfinite(A.grad).all()), "gA finite")
+    n = N_GRAD_CHECK
+    v_p, st_p = sb.gram_soft_fwd_stash(Xtr[:n], Xtr, bsp, gamma)
+    ab, rel, exc = _soft_diff(Gv.detach()[:n], v_p, SOFT_REL_LIMIT, 0.0)
+    require(exc <= 0, "K8 values disagree with the plain forward")
+    log(f"  K8 values [:{n}] vs plain forward: max abs {ab:.3g} max rel "
+        f"{rel:.3g} (bit for bit: {torch.equal(v_p, Gv.detach()[:n])})")
+    gA_p, _, _ = sb.gram_soft_bwd_scan(Xtr[:n], Xtr, bsp, gamma, st_p,
+                                       gbar[:n] * (v_p < 1e29))
+    ab, rel, exc = _soft_diff(A.grad[:n], gA_p, GRAD_RTOL,
+                              GRAD_RTOL * float(gA_p.abs().max()))
+    log(f"  K9 gA[:{n}] vs plain backward on {n} x {N_TRAIN} pairs: max abs "
+        f"{ab:.3g} max rel {rel:.3g} (limit rtol {GRAD_RTOL}, atol "
+        f"{GRAD_RTOL} x max |gA|)")
+    require(exc <= 0, "K9 gA disagrees with the plain backward")
+    off = geng.weights == 0
+    require(bool((W.grad[off] == 0).all()), "gw nonzero outside the support")
+    log(f"  gw zero on all {int(off.sum())} cells outside the support; "
+        f"max |gw| inside {float(W.grad.abs().max()):.4g}")
+    launches = launch_counts()
+    log(f"  launches on the centroid path: {launches}")
+    for k in SOFT + SLICE1:
+        require(launches[k] > 0, f"{k} never launched on the centroid path")
+    paired = _check_paired_main(eng, int(cm.labels[0]), gamma)
+    return {"ceng": ceng, "Gs": Gs, "geng": geng, "gbar": gbar,
+            "gA": A.grad, "launches": launches, "stages": stage,
+            "grad_err": ab, "paired": paired}
+
+
+def _check_paired_main(eng, label, gamma):
+    """K8 / K9 in paired mode at the shapes ``fit_centroids`` gives them:
+    the members of one class against their Euclidean mean (the inputs of
+    the first Adam step) on the engine's plan, with the barycenter loss's
+    cotangent 1 / B per pair. Values and stash against
+    ``soft_spdtw_fwd_stash`` at rel SOFT_REL_LIMIT; gx / gy / gw against
+    ``soft_spdtw_bwd_block`` at GRAD_RTOL / GRAD_ATOL, both backwards fed
+    the kernel's stash. Returns each kernel's max abs difference and its
+    time against the plain version's (ms). Run after the path's launches
+    were read, so these launches count nowhere."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import soft_block as sb
+    Xtr = eng.corpus
+    idx = np.nonzero(np.asarray(eng.labels) == label)[0]
+    X = Xtr[torch.as_tensor(idx, device=Xtr.device)]
+    B = X.shape[0]
+    z = X.mean(dim=0).expand(X.shape).contiguous()
+    bsp = sb.soft_plan(eng.bsp)
+    ms8, (v8, L8) = cuda_ms(lambda: sb.soft_fwd_stash_block(
+        z, X, bsp, gamma, gram=False), reps=3, warmup=1)
+    pms8, (vp, Lp) = cuda_ms(lambda: sb.soft_spdtw_fwd_stash(z, X, bsp,
+                                                              gamma))
+    fails, err = [], {}
+    for what, got, want in (("values", v8, vp), ("stash", L8, Lp)):
+        ab, rel, exc = _soft_diff(got, want, SOFT_REL_LIMIT, 0.0)
+        err["soft_tiles_stash"] = max(err.get("soft_tiles_stash", 0.0), ab)
+        log(f"  K8 paired {what}, class {label} ({B} pairs, "
+            f"{L8.shape[0]} walked tiles): max abs {ab:.3g} max rel "
+            f"{rel:.3g} (bit for bit: {torch.equal(got, want)})")
+        if exc > 0:
+            fails.append(f"K8 paired {what} beyond rel {SOFT_REL_LIMIT}")
+    gbar = torch.full((B,), 1.0 / B, device=X.device) * (vp < 1e29)
+    ms9, gk = cuda_ms(lambda: sb.soft_bwd_block(z, X, bsp, gamma, L8, gbar,
+                                                gram=False), reps=3,
+                      warmup=1)
+    pms9, gp = cuda_ms(lambda: sb.soft_spdtw_bwd_block(z, X, bsp, gamma,
+                                                       L8, gbar))
+    for name, a, b in zip(("gx", "gy", "gw"), gk, gp):
+        ab, rel, exc = _soft_diff(a, b, GRAD_RTOL, GRAD_ATOL)
+        err["soft_tiles_bwd"] = max(err.get("soft_tiles_bwd", 0.0), ab)
+        log(f"  K9 paired {name}: max abs {ab:.3g} max rel {rel:.3g}")
+        if exc > 0:
+            fails.append(f"K9 paired {name} beyond rtol {GRAD_RTOL} atol "
+                         f"{GRAD_ATOL}")
+    K, S, Tp = int(L8.shape[0]), bsp.tile, bsp.T
+    cells, stash_bytes = B * K * S * S, B * K * S * S * 4
+    b8 = _bound_cells(cells, _soft_fwd_flops(1), SOFT_FWD_SFU,
+                      2 * B * Tp * 4, B * 4 + stash_bytes)
+    b9 = _bound_cells(cells, _soft_bwd_flops(1), SOFT_BWD_SFU,
+                      2 * B * Tp * 4 + stash_bytes + B * 4,
+                      2 * B * Tp * 4 + Tp * Tp * 4)
+    log(f"  paired mode per Adam step of class {label}: K8 {ms8:.3f} ms "
+        f"(plain {pms8:.1f} ms, bound {b8[0]:.4f} ms by {b8[1]}), K9 "
+        f"{ms9:.3f} ms (plain {pms9:.1f} ms, bound {b9[0]:.4f} ms by "
+        f"{b9[1]})")
+    require(not fails, "; ".join(fails))
+    return {"err": err, "ms": {"soft_tiles_stash": (ms8, pms8, b8),
+                               "soft_tiles_bwd": (ms9, pms9, b9)}}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4
 # ---------------------------------------------------------------------------
 
@@ -703,6 +1094,110 @@ def phase_timing_slice2(kp, ds):
     return rows
 
 
+# per needed cell of the soft forward: the logit (3d + 1: d sub, d mul,
+# d - 1 add, the weight and the -1/gamma multiplies), the top / top-left
+# logaddexp and the in-row one (sub, max, abs, add each) with their two
+# adds, = 3d + 11 FP32 operations; and an expf and a log1pf per
+# logaddexp: 4 special-function results
+def _soft_fwd_flops(d):
+    return 3 * d + 11
+
+
+SOFT_FWD_SFU = 4
+# per needed cell of the reverse sweep: three transition coefficients
+# (add, sub, two clamps, three compares; an expf each), f = a E + c E' + inj
+# (4), the in-row recurrence (2), the logit (3d + 2) and the cotangent
+# terms (E w, E phi gbar, 2d for the row and column sums)
+SOFT_BWD_SFU = 3
+
+
+def _soft_bwd_flops(d):
+    return 5 * d + 29
+
+
+def phase_timing_soft(main, cp):
+    """K7 over the 4000 x 1000 soft Gram (theta = 2 plan) and K8 / K9 over
+    the 1000 x 1000 train Gram with a gradient (10 %-share plan), against
+    their plain versions on slices (plain K7 on 16 x 1000 pairs, plain
+    K8 / K9 on 64 x 1000), with their bounds."""
+    import torch
+    from repro_torch.kernels import soft_block as sb
+    from repro_torch.kernels.backends import to_tile_major
+    eng, ds = main["engine"], main["ds"]
+    Xtr = eng.corpus
+    Xte = torch.as_tensor(ds.X_test, device=DEVICE)
+    gamma = float(eng.spec.gamma)
+    T, S = T_MAIN, eng.bsp.tile
+    rows = []
+
+    def row(name, ms, plain_ms, ab, bound, what):
+        rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": ab, "bound_ms": bound[0],
+                     "bound_by": bound[1]})
+        log(f"  {name} {what}: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
+            f"bound {bound[0]:.4f} ms by {bound[1]}, max abs err {ab:.3g})")
+
+    # K7: the soft Gram of phase 3c
+    bsp = eng.bsp
+    g_out = sb.result_tile_step(bsp.plan(), S, T)
+    ms, G7 = cuda_ms(lambda: sb.gram_soft_spdtw_block(Xte, Xtr, bsp, gamma))
+    require(torch.equal(G7, cp["Gs"]), "K7 not deterministic across runs")
+    n7 = 16
+    pms, Gp = cuda_ms(lambda: sb.gram_soft_spdtw_scan(Xte[:n7], Xtr, bsp,
+                                                      gamma, block_a=n7))
+    ab, rel = diff(G7[:n7], Gp)
+    require(rel <= SOFT_REL_LIMIT, f"K7 at main shapes: rel {rel}")
+    Na, Nb = Xte.shape[0], Xtr.shape[0]
+    cells = Na * Nb * (g_out + 1) * S * S
+    row("soft_tiles_fwd", ms, pms, ab,
+        _bound_cells(cells, _soft_fwd_flops(1), SOFT_FWD_SFU,
+                     (Na + Nb) * T * 4, Na * Nb * 4),
+        f"{Na}x{Nb} ({g_out + 1} walked tiles; plain on {n7}x{Nb})")
+
+    # K8 / K9: the train x train Gram with a gradient of phase 3c
+    gb_ = cp["geng"].bsp
+    g_out = sb.result_tile_step(gb_.plan(), S, T)
+    K = g_out + 1
+    r = (T - 1) % S
+    Xp = to_tile_major(Xtr, S, gb_.T)
+    ms8, (v8, L8) = cuda_ms(lambda: sb.soft_fwd_cuda(
+        Xp, Xp, gb_, gram=True, d=1, g_out=g_out, r=r, gamma=gamma,
+        stash=True))
+    n = N_GRAD_CHECK
+    pms8, (vp, Lp) = cuda_ms(lambda: sb.gram_soft_fwd_stash(
+        Xtr[:n], Xtr, gb_, gamma, block_a=n))
+    ab8, rel8 = diff(L8[:, :n * Nb], Lp)
+    require(rel8 <= SOFT_REL_LIMIT, f"K8 stash at main shapes: rel {rel8}")
+    cells = Nb * Nb * K * S * S
+    stash_bytes = Nb * Nb * K * S * S * 4
+    # the error in the kernels line: the worst of Gram mode here and of
+    # paired mode at the barycenter fit's shapes (phase 3c)
+    perr = cp["paired"]["err"]
+    row("soft_tiles_stash", ms8, pms8, max(ab8, perr["soft_tiles_stash"]),
+        _bound_cells(cells, _soft_fwd_flops(1), SOFT_FWD_SFU,
+                     2 * Nb * T * 4, Nb * Nb * 4 + stash_bytes),
+        f"{Nb}x{Nb} ({K} walked tiles, stash {stash_bytes / 1e9:.2f} GB; "
+        f"plain on {n}x{Nb})")
+    gbar = (cp["gbar"] * (v8.reshape(Nb, Nb) < 1e29)).reshape(-1) \
+        .contiguous()
+    ms9, (gx, _, _, _) = cuda_ms(lambda: sb.soft_bwd_cuda(
+        Xp, Xp, gb_, L8, gbar, gram=True, d=1, g_out=g_out, r=r,
+        gamma=gamma))
+    del L8
+    gA = gx.reshape(Nb, Nb, -1).sum(1)[:, :T]
+    pms9, (gA_p, _, _) = cuda_ms(lambda: sb.gram_soft_bwd_scan(
+        Xtr[:n], Xtr, gb_, gamma, Lp, gbar.reshape(Nb, Nb)[:n], block_a=n))
+    ab9, _, exc = _soft_diff(gA[:n], gA_p, GRAD_RTOL,
+                             GRAD_RTOL * float(gA_p.abs().max()))
+    require(exc <= 0, "K9 gA at main shapes")
+    row("soft_tiles_bwd", ms9, pms9, max(ab9, perr["soft_tiles_bwd"]),
+        _bound_cells(cells, _soft_bwd_flops(1), SOFT_BWD_SFU,
+                     2 * Nb * T * 4 + stash_bytes + Nb * Nb * 4,
+                     2 * Nb * T * 4 + T * T * 4),
+        f"{Nb}x{Nb} ({K} walked tiles; plain on {n}x{Nb})")
+    return rows
+
+
 def phase_timing(main):
     import torch
     from repro_torch.kernels import gram_block as gb
@@ -758,7 +1253,7 @@ def phase_timing(main):
 def kernels_line(rows, launches):
     """The ``{"kernels": [...]}`` entries: each kernel's launches come from
     the path it belongs to (K1 / K2 the SP-DTW path, K3-K6 the kernel
-    path)."""
+    path, K7-K9 the centroid and soft-Gram path)."""
     out = []
     for r in rows:
         out.append({"name": r["name"], "route": "cuda",
@@ -771,11 +1266,13 @@ def kernels_line(rows, launches):
     return out
 
 
-def phase_profile(main, kp=None):
+def phase_profile(main, kp=None, cp=None):
     """Device time by kernel over one ``engine.knn``, one ``engine.gram``
     and the occupancy counts of 200 train series (torch.profiler), and,
     after the kernel path, one sp_krdtw ``engine.knn`` and one SVM Gram
-    series; with the device's busy share of the wall time of each call."""
+    series, and after the centroid path, one 10-step barycenter fit of a
+    class and one centroid-seeded ``engine.knn``; with the device's busy
+    share of the wall time of each call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -793,6 +1290,13 @@ def phase_profile(main, kp=None):
                    lambda: svm.svm_gram_series(keng.corpus, X,
                                                kind="sp_krdtw", sp=kp["sp"],
                                                nu=kp["nu"]))]
+    if cp is not None:
+        ceng = cp["ceng"]
+        members = eng.corpus[torch.as_tensor(
+            main["ds"].y_train == 0, device=eng.corpus.device)]
+        calls += [("barycenter of class 0, 10 steps",
+                   lambda: ceng.barycenter(members, steps=10)),
+                  ("centroid-seeded engine.knn", lambda: ceng.knn(X))]
     for what, fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -818,7 +1322,8 @@ def phase_profile(main, kp=None):
                 and any(k in e.name for k in ("gram_kernel", "paired_kernel",
                                               "krdtw_kernel",
                                               "wavefront_kernel",
-                                              "banded_kernel"))]
+                                              "banded_kernel", "fwd_kernel",
+                                              "bwd_kernel"))]
         log(f"    CUDA kernel launches in order (ms): "
             f"{', '.join(f'{t:.2f}' for t in ours)}")
         for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
@@ -852,15 +1357,20 @@ def main(argv=None) -> int:
     log(f"phase 3b: kernel-measure and baseline path, TwoPatterns "
         f"{N_TRAIN}/{N_TEST}, T={T_MAIN}")
     kp = phase_kernel_path(main_out)
+    log(f"phase 3c: centroid and soft-Gram path, TwoPatterns "
+        f"{N_TRAIN}/{N_TEST}, T={T_MAIN}")
+    cp = phase_centroid_path(main_out)
     log("profile: device time by kernel")
-    phase_profile(main_out, kp)
+    phase_profile(main_out, kp, cp)
     if args.stop_after < 4:
         return 0
     log("phase 4: kernel timing at the paths' shapes")
-    rows = phase_timing(main_out) + phase_timing_slice2(kp, main_out["ds"])
+    rows = phase_timing(main_out) + phase_timing_slice2(kp, main_out["ds"]) \
+        + phase_timing_soft(main_out, cp)
     launches = {k: main_out["launches"][k] for k in SLICE1}
     launches.update({k: kp["launches"][k] for k in KERNELS
-                     if k not in SLICE1})
+                     if k not in SLICE1 and k not in SOFT})
+    launches.update({k: cp["launches"][k] for k in SOFT})
     kernels = kernels_line(rows, launches)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card_line())

@@ -7,7 +7,10 @@ It follows the reference package's layer map, one directory per layer:
              sparsification
   kernels/   the hand-written CUDA kernels (csrc/), their wrappers and
              their plain PyTorch versions, the backend registry
-  classify/  1-NN evaluation, the kernel SVM, meta-parameter selection
+  classify/  1-NN evaluation, the kernel SVM, meta-parameter selection,
+             nearest-centroid classification
+  cluster/   soft-SP-DTW barycenters, k-means and centroid models
+  train/     the in-house AdamW the barycenters use
   data/      offline synthetic-UCR datasets (the reference's generators)
 
 and imports neither ``jax`` nor ``repro``. The entry point is the fitted
@@ -17,12 +20,19 @@ engine:
     engine = fit(spec, corpus, labels=labels)      # on cuda by default
     nn, dist = engine.knn(queries)
 
-``convert`` carries a fitted reference engine's state across.
+``convert`` carries a fitted reference engine's state (and centroid
+model) across.
 """
 from .core import (BlockSparsePaths, CorpusIndex, MeasureSpec,
                    SimilarityEngine, SparsePaths, block_sparsify,
                    build_corpus_index, default_tile, fit,
                    learn_sparse_paths, pairwise_path_counts)
-from .classify import (knn_error, knn_error_series, knn_predict, loo_error,
+from .core import soft_alignment, soft_dtw, soft_spdtw, soft_wdtw
+from .classify import (centroid_error_series, knn_error, knn_error_series,
+                       knn_predict, loo_error, nearest_centroid_predict,
                        select_nu, select_radius, select_theta_gamma,
                        svm_error, svm_fit, svm_gram_series, svm_predict)
+from .kernels.soft_block import (soft_alignment_pairs, soft_spdtw_batch,
+                                 soft_spdtw_gram_batch)
+from .cluster import (CentroidModel, fit_class_centroids, soft_barycenter,
+                      soft_kmeans)

@@ -7,6 +7,9 @@ slot, blocks, T, meta) and the corpus with its labels. This module turns
 those arrays, handed over as numpy, into the port's objects, so a port
 engine computes on exactly the support the reference computes on.
 
+``centroid_model_from_reference`` carries a fitted centroid model
+(centroids, labels, medoids) across the same way.
+
 ``state_from_reference`` reads the arrays off any object shaped like the
 reference's ``SimilarityEngine`` (attributes ``spec``, ``T``, ``sp``,
 ``bsp``, ``corpus``, ``labels``) through ``numpy.asarray``; it imports
@@ -86,6 +89,32 @@ def engine_from_state(state: dict, device=None) -> SimilarityEngine:
         bsp = block_sparse_from_arrays(state["bsp"])
     return fit(spec, state.get("corpus"), labels=state.get("labels"),
                sp=sp, bsp=bsp, T=state["T"], device=device)
+
+
+def centroid_model_from_reference(model, device=None):
+    """The port's ``cluster.CentroidModel`` for a reference one: its
+    centroids, weights, gamma, labels, medoids and plan, read through
+    ``numpy.asarray``, on ``device`` (default ``cuda``)."""
+    from repro_torch.cluster.kmeans import CentroidModel
+    from repro_torch.core.engine import resolve_device
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    bsp = None
+    if getattr(model, "bsp", None) is not None:
+        b = model.bsp
+        bsp = block_sparse_from_arrays(dict(
+            tile=b.tile, active=b.active, slot=b.slot, blocks=b.blocks,
+            T=b.T, meta=b.plan()))
+    return CentroidModel(
+        centroids=t(model.centroids), weights=t(model.weights),
+        gamma=float(model.gamma),
+        labels=None if model.labels is None
+        else np.asarray(model.labels, np.int32),
+        medoids=None if model.medoids is None
+        else np.asarray(model.medoids, np.int32), bsp=bsp)
 
 
 def engine_from_reference(engine, device=None) -> SimilarityEngine:

@@ -11,6 +11,8 @@
   envelopes, lb_kim_band_cross, lb_keogh_cross,
   krdtw_log_slacks, lb_log_krdtw                    (bounds.py)
   CorpusIndex, build_corpus_index                   (measures.py)
+  NEG, soft_wdtw, soft_spdtw, soft_dtw,
+  soft_alignment, logsumexp_scan                    (softdtw.py)
   MeasureSpec                                       (spec.py)
   fit, SimilarityEngine                             (engine.py)
 """
@@ -26,5 +28,7 @@ from .bounds import (envelopes, krdtw_log_slacks, lb_keogh_cross,
                      lb_kim_band_cross, lb_kim_cross, lb_log_krdtw,
                      row_min_weights, support_extents)
 from .measures import CorpusIndex, build_corpus_index
+from .softdtw import (NEG, logsumexp_scan, soft_alignment, soft_dtw,
+                      soft_spdtw, soft_wdtw)
 from .spec import MeasureSpec
 from .engine import SimilarityEngine, fit

@@ -3,7 +3,9 @@
 The counterpart of ``repro.core.engine``: ``fit(spec, corpus)`` resolves
 the support grid, the block-sparse tile plan and the per-corpus search
 index exactly once, and returns a frozen ``SimilarityEngine`` whose
-``pairs`` / ``gram`` / ``gram_log`` / ``knn`` / ``classify`` reuse them.
+``pairs`` / ``gram`` / ``gram_log`` / ``knn`` / ``classify`` and the
+differentiable ``soft_pairs`` / ``soft_gram`` / ``grad`` / ``barycenter``
+/ ``fit_centroids`` reuse them.
 Every family of ``MeasureSpec`` fits: the min-plus DPs (``dtw``,
 ``dtw_sc``, ``spdtw``), the K_rdtw kernels (``krdtw``, ``krdtw_sc``,
 ``sp_krdtw``; log-kernel values, negated into dissimilarities by
@@ -35,6 +37,7 @@ from .occupancy import BlockSparsePaths, SparsePaths, learn_sparse_paths
 from .spec import KERNEL_FAMILIES, MeasureSpec
 
 _CASCADE_FAMILIES = ("dtw", "spdtw")   # admissible min-plus bounds exist
+_SOFT_FAMILIES = ("dtw", "spdtw")      # min-plus DPs with a soft twin
 _BASELINES = ("euclidean", "corr", "daco")
 
 
@@ -85,7 +88,10 @@ class SimilarityEngine:
                     the kernel cascade (None for the other families);
     device          where the engine's tensors live and compute;
     version         refresh stamp: 0 for a fresh ``fit``, bumped by
-                    ``with_corpus``.
+                    ``with_corpus``;
+    centroid_model  fitted ``cluster.CentroidModel`` (optional): the
+                    cascade seeds from it and ``classify`` serves
+                    nearest-centroid.
 
     Methods accept ``impl`` = "auto" | "cuda" | "scan" | "dense", resolved
     by ``kernels.backends.resolve`` against the engine's device.
@@ -101,6 +107,7 @@ class SimilarityEngine:
     index: Optional[CorpusIndex] = None
     device: torch.device = torch.device("cpu")
     version: int = 0
+    centroid_model: Optional[object] = None
 
     @property
     def family(self) -> str:
@@ -204,12 +211,12 @@ class SimilarityEngine:
             raise ValueError("engine was fit without a corpus")
         Q = self._series(Q)
         if self.index is not None:
-            cascade = ops._krdtw_knn_cascade \
-                if self.index.kind in ("krdtw", "sp_krdtw") \
-                else ops._knn_cascade
-            return cascade(Q, self.index, impl=impl, seed_k=seed_k,
-                           prefix_frac=prefix_frac,
-                           return_stats=return_stats)
+            kw = dict(impl=impl, seed_k=seed_k, prefix_frac=prefix_frac,
+                      return_stats=return_stats)
+            if self.index.kind in ("krdtw", "sp_krdtw"):
+                return ops._krdtw_knn_cascade(Q, self.index, **kw)
+            return ops._knn_cascade(Q, self.index,
+                                    centroid_model=self.centroid_model, **kw)
         D = self.gram(Q, impl=impl)
         nn = torch.argmin(D, dim=1).to(torch.int32)
         nnd = D.gather(1, nn[:, None].long())[:, 0]
@@ -222,15 +229,90 @@ class SimilarityEngine:
 
     def classify(self, Q, *, impl: str = "auto",
                  via: str = "auto") -> np.ndarray:
-        """Predicted labels for queries ``Q``: 1-NN over the corpus
-        labels."""
-        if via not in ("auto", "knn"):
-            raise NotImplementedError("nearest-centroid classification is "
-                                      "not ported yet")
+        """Predicted labels for queries ``Q``: nearest-centroid when a
+        centroid model was fit (``via="centroid"`` forces it, "knn" forces
+        the cascade / Gram path), else 1-NN over the corpus labels."""
+        if via not in ("auto", "knn", "centroid"):
+            raise ValueError(f"via must be auto, knn or centroid, not "
+                             f"{via!r}")
+        if via == "centroid" or (via == "auto" and
+                                 self.centroid_model is not None):
+            if self.centroid_model is None:
+                raise ValueError("no centroid model fit")
+            from repro_torch.classify.centroid import \
+                nearest_centroid_predict
+            return nearest_centroid_predict(
+                self._series(Q), self.centroid_model,
+                impl=impl).cpu().numpy()
         if self.labels is None:
             raise ValueError("engine was fit without labels")
         nn, _ = self.knn(Q, impl=impl)
         return np.asarray(self.labels)[nn.cpu().numpy()]
+
+    # ---- differentiable layer ------------------------------------------
+    def _soft_weights(self) -> torch.Tensor:
+        if self.family not in _SOFT_FAMILIES:
+            raise ValueError(f"{self.family} has no soft (differentiable) "
+                             f"twin")
+        if self.weights is not None:
+            return self.weights
+        return torch.ones((self.T, self.T), dtype=torch.float32,
+                          device=self.device)
+
+    def soft_pairs(self, x, y) -> torch.Tensor:
+        """Differentiable aligned-pair soft measure at the spec's
+        ``gamma``: K8 / K9 under grad, K7 otherwise (on the card)."""
+        from repro_torch.kernels.soft_block import soft_spdtw_batch
+        return soft_spdtw_batch(self._series(x), self._series(y),
+                                self._soft_weights(), float(self.spec.gamma),
+                                bsp=self.bsp)
+
+    def soft_gram(self, A, B=None) -> torch.Tensor:
+        """Differentiable all-pairs soft Gram matrix against ``B``
+        (default: the corpus) at the spec's ``gamma``: K8 / K9 under
+        grad, K7 otherwise (on the card)."""
+        from repro_torch.kernels.soft_block import soft_spdtw_gram_batch
+        return soft_spdtw_gram_batch(self._series(A), self._corpus_or(B),
+                                     self._soft_weights(),
+                                     float(self.spec.gamma), bsp=self.bsp)
+
+    def grad(self, x, y):
+        """(values, d values / d x) of the soft measure for aligned
+        pairs; the gradient never leaves the learned support."""
+        x = self._series(x).detach().requires_grad_()
+        y = self._series(y)
+        with torch.enable_grad():
+            val = self.soft_pairs(x, y)
+            (gx,) = torch.autograd.grad(val.sum(), x)
+        return val.detach(), gx
+
+    def barycenter(self, X=None, *, sample_weights=None, init=None,
+                   steps: int = 100, lr: float = 0.05):
+        """Fit one soft barycenter over ``X`` (default: the corpus) under
+        the engine's support and ``gamma``. Returns (centroid (T[, d]),
+        per-step loss history)."""
+        from repro_torch.cluster.barycenter import soft_barycenter
+        return soft_barycenter(self._corpus_or(X), self._soft_weights(),
+                               float(self.spec.gamma), init=init,
+                               steps=steps, lr=lr,
+                               sample_weights=sample_weights, bsp=self.bsp)
+
+    def fit_centroids(self, n_per_class: int = 1, *, steps: int = 60,
+                      lr: float = 0.05, impl: str = "auto",
+                      seed: Optional[int] = None) -> "SimilarityEngine":
+        """Fit ``n_per_class`` soft-barycenter centroids per class label
+        on the corpus and return a new engine carrying the model (the
+        cascade seeds from it; ``classify`` serves nearest-centroid).
+        ``seed`` defaults to the spec's."""
+        if self.corpus is None or self.labels is None:
+            raise ValueError("centroid fitting needs a corpus with labels")
+        from repro_torch.cluster import fit_class_centroids
+        model = fit_class_centroids(
+            self.corpus, self.labels, self._soft_weights(),
+            float(self.spec.gamma), n_per_class=n_per_class, steps=steps,
+            lr=lr, impl=impl,
+            seed=self.spec.seed if seed is None else seed, bsp=self.bsp)
+        return dataclasses.replace(self, centroid_model=model)
 
     def with_corpus(self, corpus, labels=None) -> "SimilarityEngine":
         """Re-fit the corpus-dependent artifacts (index) on a new candidate
@@ -245,7 +327,8 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
         sp: Optional[SparsePaths] = None, weights=None,
         bsp: Optional[BlockSparsePaths] = None, support_corpus=None,
         n_support: Optional[int] = None, T: Optional[int] = None,
-        device=None) -> SimilarityEngine:
+        device=None, centroids: int = 0,
+        centroid_steps: int = 60) -> SimilarityEngine:
     """Fit a ``MeasureSpec`` to data: resolve support, plan and index once.
 
     corpus:          (N, T) or (N, T, d) candidate set; optional (a
@@ -259,6 +342,9 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
     T:               series length for support-only engines.
     device:          where to compute; default ``cuda`` (raises without
                      it). Pass ``"cpu"`` for the plain versions.
+    centroids:       fit this many soft-barycenter centroids per class
+                     at fit time (> 0 needs labels), ``centroid_steps``
+                     Adam steps each.
     """
     from repro_torch.kernels import backends as bk
     dev = resolve_device(device)
@@ -328,7 +414,10 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
         index = build_corpus_index(
             corpus, sup_w, kind=spec.family,
             bsp=bk.resolve_plan(weights=sup_w, tile=spec.tile), nu=spec.nu)
-    return SimilarityEngine(
+    engine = SimilarityEngine(
         spec=spec, T=T, d=d, sp=sp, weights=w, bsp=plan, corpus=corpus,
         labels=None if labels is None else np.asarray(labels),
         index=index, device=dev)
+    if centroids > 0:
+        engine = engine.fit_centroids(centroids, steps=centroid_steps)
+    return engine

@@ -134,6 +134,34 @@ def _tile_plan(active: np.ndarray, slot: np.ndarray) -> np.ndarray:
                     axis=1).astype(np.int32)
 
 
+def _reverse_tile_plan(active: np.ndarray, meta: np.ndarray,
+                       g_out: int) -> np.ndarray:
+    """Reverse active-tile schedule for the expected-alignment sweep, one
+    int32 row per reverse step: the forward plan steps ``g_out .. 0`` in
+    reverse row-major order, so every successor tile of an edge runs
+    before its consumer.
+
+    Columns: (ti, tj, slot, below_active, right_active, diagbr_active,
+    fwd_step). The neighbour bits are taken against the *walked* prefix
+    ``meta[:g_out+1]``: tiles past the result tile carry no alignment
+    mass, so their halo edges read as E = 0 / L = NEG. ``fwd_step`` is
+    the forward plan index of the tile, the key of its stashed L block.
+    """
+    sub = meta[:g_out + 1]
+    ii, jj = sub[:, 0], sub[:, 1]
+    Ti, Tj = active.shape
+    walked = np.zeros_like(active, dtype=bool)
+    walked[ii, jj] = True
+    below = (ii + 1 < Ti) & walked[np.minimum(ii + 1, Ti - 1), jj]
+    right = (jj + 1 < Tj) & walked[ii, np.minimum(jj + 1, Tj - 1)]
+    diagbr = ((ii + 1 < Ti) & (jj + 1 < Tj)
+              & walked[np.minimum(ii + 1, Ti - 1),
+                       np.minimum(jj + 1, Tj - 1)])
+    fwd = np.arange(g_out + 1)
+    rp = np.stack([ii, jj, sub[:, 2], below, right, diagbr, fwd], axis=1)
+    return np.ascontiguousarray(rp[::-1]).astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockSparsePaths:
     """Compressed block-sparse view of a SparsePaths grid (host numpy).
@@ -146,6 +174,8 @@ class BlockSparsePaths:
              the all-zero dummy.
     T:       padded grid edge (a multiple of ``tile``).
     meta:    cached (n_active, 7) int32 tile plan (see ``_tile_plan``).
+    rmeta:   cache of reverse plans keyed by the result-tile step (see
+             ``reverse_plan``).
     """
     tile: int
     active: np.ndarray
@@ -153,6 +183,8 @@ class BlockSparsePaths:
     blocks: np.ndarray
     T: int
     meta: Optional[np.ndarray] = None
+    rmeta: Optional[dict] = dataclasses.field(default=None, repr=False,
+                                              compare=False)
     _device_cache: dict = dataclasses.field(default_factory=dict,
                                             repr=False, compare=False)
 
@@ -172,6 +204,27 @@ class BlockSparsePaths:
             object.__setattr__(self, "meta",
                                _tile_plan(self.active, self.slot))
         return self.meta
+
+    def reverse_plan(self, g_out: int) -> np.ndarray:
+        """The cached reverse schedule through forward step ``g_out`` (the
+        result-tile step of the series length at hand; see
+        ``kernels.spdtw_block.result_tile_step``), one entry per g_out."""
+        if self.rmeta is None:
+            object.__setattr__(self, "rmeta", {})
+        if g_out not in self.rmeta:
+            self.rmeta[g_out] = _reverse_tile_plan(self.active, self.plan(),
+                                                   g_out)
+        return self.rmeta[g_out]
+
+    def reverse_on_device(self, g_out: int, device) -> torch.Tensor:
+        """``reverse_plan(g_out)`` as an int32 tensor on ``device``,
+        copied once per (device, g_out) and kept."""
+        key = (str(torch.device(device)), "reverse", int(g_out))
+        if key not in self._device_cache:
+            self._device_cache[key] = torch.as_tensor(
+                np.ascontiguousarray(self.reverse_plan(g_out)),
+                device=device)
+        return self._device_cache[key]
 
     def on_device(self, device) -> tuple:
         """(meta, blocks) as int32 / float32 tensors on ``device``, copied

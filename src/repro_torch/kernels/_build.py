@@ -47,6 +47,14 @@ SIGNATURES = {
         "dtw_wavefront": (_P, _P, _I, _I, _I, _I, _P, _P),
         "dtw_banded": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     },
+    "soft_tiles": {
+        "soft_tiles_fwd": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F,
+                           _F, _I, _I, _P, _P),
+        "soft_tiles_stash": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
+                             _F, _F, _I, _I, _P, _P, _P),
+        "soft_tiles_bwd": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F,
+                           _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    },
 }
 
 # launches per entry point since the last reset

@@ -10,7 +10,8 @@ The counterpart of ``repro.kernels.backends``. Three execute backends:
             production path. CPU tensors.
     cuda    the hand-written Hopper kernels: K1/K2 (``csrc/
             spdtw_tiles.cu``), K3/K4 (``csrc/krdtw_wavefront.cu``), K5/K6
-            (``csrc/dtw_wavefront.cu``). CUDA tensors.
+            (``csrc/dtw_wavefront.cu``), K7-K9 (``csrc/
+            soft_tiles.cu``). CUDA tensors.
 
 Every kernel keeps a plain PyTorch version beside its wrapper (the
 ``*_scan`` / ``*_plain`` functions); the wrapper runs it for a CPU
@@ -38,8 +39,11 @@ MULTIVARIATE = "multivariate"          # accepts (T, d>1) series
 EARLY_ABANDON = "early-abandon"        # honours thresholds/alive0 pruning
 PRUNED_DP = "pruned-dp"                # in-DP PrunedDTW row clamps and
 #                                        boundary-dead tile skips
+DIFFERENTIABLE = "differentiable"      # soft-SP-DTW forward with stash and
+#                                        the reverse expected-alignment
+#                                        sweep, at any d
 
-CAPABILITIES = (MULTIVARIATE, EARLY_ABANDON, PRUNED_DP)
+CAPABILITIES = (MULTIVARIATE, EARLY_ABANDON, PRUNED_DP, DIFFERENTIABLE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,15 +66,18 @@ _REGISTRY = {b.name: b for b in (
     Backend("dense", "cpu", frozenset({MULTIVARIATE}), None,
             "batched dense DPs over the full grid; the oracle"),
     Backend("scan", "cpu",
-            frozenset({MULTIVARIATE, EARLY_ABANDON, PRUNED_DP}), "dense",
+            frozenset({MULTIVARIATE, EARLY_ABANDON, PRUNED_DP,
+                       DIFFERENTIABLE}), "dense",
             "plain PyTorch over the active-tile schedule and the core "
             "row recursions (DTW_sc, K_rdtw)"),
     Backend("cuda", "cuda",
-            frozenset({MULTIVARIATE, EARLY_ABANDON, PRUNED_DP}), None,
+            frozenset({MULTIVARIATE, EARLY_ABANDON, PRUNED_DP,
+                       DIFFERENTIABLE}), None,
             "hand-written Hopper kernels: K1/K2 SP-DTW tiles "
             "(csrc/spdtw_tiles.cu), K3/K4 log K_rdtw wavefronts "
             "(csrc/krdtw_wavefront.cu), K5/K6 DTW wavefront and "
-            "Sakoe-Chiba strip (csrc/dtw_wavefront.cu)"),
+            "Sakoe-Chiba strip (csrc/dtw_wavefront.cu), K7-K9 soft-SP-DTW "
+            "forward, stash and reverse sweep (csrc/soft_tiles.cu)"),
 )}
 
 # legacy spelling accepted wherever an ``impl=`` flows in
@@ -193,15 +200,16 @@ def series_dim(X) -> int:
 
 
 def to_tile_major(X: torch.Tensor, S: int, Tp: int,
-                  n_to: Optional[int] = None) -> torch.Tensor:
+                  n_to: Optional[int] = None,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Lay a series batch out tile-major / channel-inner for the engines.
 
-    X: (N, T) or (N, T, d) -> (n_to or N, (Tp // S) * d * S) f32,
-    contiguous, where channel k of tile ti occupies lanes
-    [ti*d*S + k*S, ti*d*S + (k+1)*S). Rows pad to ``n_to``, time pads to
-    ``Tp`` (the plan's padded grid edge) with zeros.
+    X: (N, T) or (N, T, d) -> (n_to or N, (Tp // S) * d * S) ``dtype``
+    (f32 by default), contiguous, where channel k of tile ti occupies
+    lanes [ti*d*S + k*S, ti*d*S + (k+1)*S). Rows pad to ``n_to``, time
+    pads to ``Tp`` (the plan's padded grid edge) with zeros.
     """
-    X = X.to(torch.float32)
+    X = X.to(dtype)
     if X.ndim == 2:
         X = X[:, :, None]
     N, T, d = X.shape

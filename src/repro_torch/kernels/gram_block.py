@@ -58,7 +58,8 @@ def _pair_batch(xa: torch.Tensor, yb: torch.Tensor):
 def _tile_scan(meta: np.ndarray, blocks: torch.Tensor, get_xy, P: int,
                Tp: int, thr_p: torch.Tensor, alive_p: torch.Tensor, *,
                S: int, g_out: int, ri: int, d: int = 1, prune: bool = False,
-               count: bool = False):
+               count: bool = False, sweep=tile_sweep, neutral: float = INF,
+               stash: bool = False):
     """The loop over the active-tile schedule (DP wavefront order).
 
     ``get_xy(ti, tj) -> ((P, d*S), (P, d*S))`` supplies the per-pair
@@ -67,15 +68,28 @@ def _tile_scan(meta: np.ndarray, blocks: torch.Tensor, get_xy, P: int,
     prefix bound), the captured row of step ``g_out`` (g_out = -2 skips
     capture), the alive flags after early abandoning, and with ``count``
     the (P, 1) int32 per-pair live-tile counts.
+
+    ``sweep`` / ``neutral`` set the per-tile DP and its "unreachable"
+    value: (``tile_sweep``, +INF) is the min-plus SP-DTW; the soft engines
+    of ``soft_block`` pass the log-semiring sweep with neutral NEG (edges
+    then carry L = -R/gamma) and +INF thresholds, which keep every pair
+    alive. ``stash=True`` expects a sweep that returns a fourth value, the
+    tile's (P, S*S) block, and returns the blocks stacked in plan order as
+    a fourth element (n_steps, P, S*S): the soft backward's residual. The
+    DP state's dtype follows ``blocks``.
     """
-    dev = blocks.device
-    inf_row = torch.full((P, S), INF, dtype=torch.float32, device=dev)
-    row_edge = torch.full((P, Tp), INF, dtype=torch.float32, device=dev)
+    if stash and (prune or count):
+        raise ValueError("prune / count are min-plus features; the stash "
+                         "path is soft-only")
+    dev, dt = blocks.device, blocks.dtype
+    inf_row = torch.full((P, S), neutral, dtype=dt, device=dev)
+    row_edge = torch.full((P, Tp), neutral, dtype=dt, device=dev)
     col_edge = inf_row
-    corner = torch.full((P, 1), INF, dtype=torch.float32, device=dev)
+    corner = torch.full((P, 1), neutral, dtype=dt, device=dev)
     dri_out = inf_row
     alive = alive_p
     tiles = torch.zeros((P, 1), dtype=torch.int32, device=dev)
+    blks = []
     for k in range(meta.shape[0]):
         ti, tj, slot, top_ok, left_ok, diag_ok, row_first = \
             (int(v) for v in meta[k])
@@ -87,13 +101,12 @@ def _tile_scan(meta: np.ndarray, blocks: torch.Tensor, get_xy, P: int,
             else inf_row
         left_vec = col_edge if left_ok else inf_row
         if k == 0:
-            c_first = torch.zeros((P, 1), dtype=torch.float32, device=dev)
+            c_first = torch.zeros((P, 1), dtype=dt, device=dev)
         elif diag_ok:
             c_first = corner if left_ok else \
                 row_edge[:, tj * S - 1:tj * S].clone()
         else:
-            c_first = torch.full((P, 1), INF, dtype=torch.float32,
-                                 device=dev)
+            c_first = torch.full((P, 1), neutral, dtype=dt, device=dev)
         if prune:
             edge_live = ((top_vec.amin(dim=1, keepdim=True) <= thr_p)
                          | (left_vec.amin(dim=1, keepdim=True) <= thr_p)
@@ -101,16 +114,19 @@ def _tile_scan(meta: np.ndarray, blocks: torch.Tensor, get_xy, P: int,
             live = alive & edge_live
             if bool(live.any()):
                 x, y = get_xy(ti, tj)
-                d_last, rightcol, dri = tile_sweep(
+                d_last, rightcol, dri = sweep(
                     x, y, w, top_vec, left_vec, c_first, S=S, ri=ri, d=d,
-                    thr=thr_p)
+                    thr=thr_p)[:3]
             else:
                 d_last = rightcol = dri = inf_row
         else:
             live = alive
             x, y = get_xy(ti, tj)
-            d_last, rightcol, dri = tile_sweep(x, y, w, top_vec, left_vec,
-                                               c_first, S=S, ri=ri, d=d)
+            out = sweep(x, y, w, top_vec, left_vec, c_first, S=S, ri=ri,
+                        d=d)
+            d_last, rightcol, dri = out[:3]
+            if stash:
+                blks.append(out[3])
         row_edge[:, tj * S:(tj + 1) * S] = d_last
         if k == g_out:
             dri_out = dri
@@ -120,6 +136,8 @@ def _tile_scan(meta: np.ndarray, blocks: torch.Tensor, get_xy, P: int,
         corner = top_vec[:, S - 1:S]
     if count:
         return row_edge, dri_out, alive, tiles
+    if stash:
+        return row_edge, dri_out, alive, torch.stack(blks)
     return row_edge, dri_out, alive
 
 

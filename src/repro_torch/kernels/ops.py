@@ -11,6 +11,8 @@ engines and the core oracles, ``dense`` the dense core DPs. On ``cuda``:
   K4 ``krdtw_wavefront.wavefront_log_krdtw``  aligned-pair log K_rdtw
   K5 ``dtw_wavefront.wavefront_dtw``       aligned-pair DTW / DTW_sc
   K6 ``dtw_banded.banded_dtw[_gram]``      DTW_sc pairs and Gram
+  K7-K9 ``soft_block``                    the soft-SP-DTW layer (through
+                                          the engine's soft methods)
 
 A CUDA tensor reaches one of them or an exception, never a plain
 version.
@@ -232,7 +234,9 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
                  centroid_model=None):
     """Exact 1-NN of queries against an indexed corpus (DESIGN.md §4).
 
-    (1) banded LB_Kim endpoint bound; (2) support-windowed LB_Keogh
+    (0) with a ``centroid_model`` carrying medoids, the exact distance to
+    the medoid of each query's nearest centroid (K1 Gram against the k
+    centroids, K2 on the medoid pairs) seeds the threshold; (1) banded LB_Kim endpoint bound; (2) support-windowed LB_Keogh
     envelopes, both orientations; seed each query's threshold with the
     exact distance of its ``seed_k`` best-bounded candidates; (3) the
     truncated prefix-DP bound over the first ``prefix_frac`` of the tile
@@ -244,9 +248,6 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
     the neighbours equal a full Gram argmin bit for bit, first index on
     ties. Returns (nn int32, nn_dist[, stats]).
     """
-    if centroid_model is not None:
-        raise NotImplementedError("the centroid-seeded stage 0 needs the "
-                                  "soft-SP-DTW centroids, not ported yet")
     C = index.corpus
     Q = Q.to(device=C.device, dtype=torch.float32)
     Nq, T = Q.shape[:2]
@@ -256,6 +257,21 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
     if impl != "dense":
         require += (bk.EARLY_ABANDON, bk.PRUNED_DP)
     impl_r = bk.resolve(impl, device=Q.device, require=require).name
+
+    # --- stage 0: centroid-seeded threshold (k + 1 DPs per query): the
+    # exact distance to the medoid of each query's nearest centroid ---
+    cand = d_cand = None
+    n_centroids = 0
+    if centroid_model is not None and \
+            getattr(centroid_model, "medoids", None) is not None:
+        Z = centroid_model.centroids.to(device=Q.device, dtype=torch.float32)
+        n_centroids = int(Z.shape[0])
+        Dc = _spdtw_gram(Q, Z, bsp=index.bsp, weights=index.weights,
+                         impl=impl_r, block_a=block_a)
+        best_c = torch.argmin(Dc, dim=1)
+        cand = torch.as_tensor(np.asarray(centroid_model.medoids),
+                               dtype=torch.long, device=Q.device)[best_c]
+        d_cand = _pair_dp(Q, C[cand], index, impl_r)
 
     # --- stage 1: banded endpoint bound ---
     lb1 = _bounds.lb_kim_band_cross(Q, C, index.lo, index.hi,
@@ -274,11 +290,15 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
     yc = C[seed_idx.reshape(-1)]
     seed_d = _pair_dp(xq, yc, index, impl_r).reshape(Nq, seed_k)
     thr = seed_d.amin(dim=1)                                    # (Nq,)
+    if d_cand is not None:
+        thr = torch.minimum(thr, d_cand)
 
     # --- survivors so far: bound <= threshold (non-strict keeps ties) ---
     rows = torch.arange(Nq, device=Q.device)[:, None]
     alive2 = lb2 <= thr[:, None]
     alive2[rows, seed_idx] = False                              # known
+    if cand is not None:
+        alive2[rows[:, 0], cand] = False
 
     # --- stage 3: truncated prefix-DP bound on the block plan ---
     n_prefix = prefix_tile_count(index.bsp, prefix_frac, T)
@@ -297,6 +317,8 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
     # --- stage 4: exact DP on the survivors, early abandoning ---
     D = torch.full((Nq, Nc), INF, dtype=torch.float32, device=Q.device)
     D[rows, seed_idx] = seed_d
+    if cand is not None:
+        D[rows[:, 0], cand] = d_cand
     G_ab = None
     if impl_r == "scan":
         # gather the survivors: the DP only ever touches those pairs
@@ -314,7 +336,8 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
     if not return_stats:
         return nn, nnd
     total = Nq * Nc
-    dp_pairs = int(alive.sum()) + Nq * seed_k
+    dp_pairs = int(alive.sum()) + Nq * (
+        seed_k + (n_centroids + 1 if cand is not None else 0))
     abandoned = alive & ((D if G_ab is None else G_ab) >= 1e29)
 
     def frac(m):
@@ -322,7 +345,7 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
 
     stats = {
         "n_queries": Nq, "n_candidates": Nc, "seed_k": seed_k,
-        "n_centroids": 0,
+        "n_centroids": n_centroids,
         "prefix_tiles": n_prefix, "plan_tiles": index.bsp.n_active,
         "stage1_prune": frac(lb1 > thr[:, None]),
         "stage2_prune": frac(lb2 > thr[:, None]),

@@ -207,6 +207,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "import repro_torch.kernels.krdtw_wavefront;"
             "import repro_torch.kernels.dtw_wavefront;"
             "import repro_torch.kernels.dtw_banded;"
+            "import repro_torch.kernels.soft_block, repro_torch.core.softdtw;"
+            "import repro_torch.cluster, repro_torch.classify.centroid;"
+            "import repro_torch.train.optimizer;"
             "import chip_smoke;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
