@@ -17,11 +17,11 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
      tile edge S, d in {1, 3}, random sparse supports and a learned one;
    - K3 (``krdtw_gram``) and K4 (``krdtw_paired``) against
      ``gram_log_krdtw_plain`` / ``wavefront_log_krdtw_plain`` at T in
-     {24, 100, 128, 300}, nu in {0.1, 0.5, 2}, on the full grid, a
+     {24, 100, 128, 300, 1024}, nu in {0.1, 0.5, 2}, on the full grid, a
      corridor and a support; K3 and K4 must agree bit for bit;
    - K5 (``dtw_wavefront``) and K6 (``dtw_banded``, pairs and Gram) against
      ``wavefront_dtw_plain`` / ``banded_dtw_plain`` over the radius grid
-     up to w = 26, at d in {1, 3}.
+     up to w = 26, at d in {1, 3}, and K6 at T = 1024, w = 204.
    - K7 (``soft_tiles_fwd``), K8 (``soft_tiles_stash``) and K9
      (``soft_tiles_bwd``) against ``gram_soft_spdtw_scan`` /
      ``soft_spdtw_paired_scan``, ``gram_soft_fwd_stash`` /
@@ -30,9 +30,9 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
      (S, d, T) in {(8, 1, 40), (16, 1, 70), (16, 3, 70)}, Gram and paired
      mode, on a random support, a masked corner cell, a ragged T_orig and
      an inactive corner tile.
-   The limit is rel 1e-6 for K1, K2, K5, K6, rel 1e-5 for K3, K4 (exp
-   and log on both sides) and K7, K8, and rtol 1e-4 / atol 1e-5 for K9's
-   gradients and E blocks (f32 sums in another order).
+   K1-K4 and K6 must equal their plain versions bit for bit; the limit
+   is rel 1e-6 for K5, rel 1e-5 for K7, K8, and rtol 1e-4 / atol 1e-5 for
+   K9's gradients and E blocks (f32 sums in another order).
 3. The SP-DTW main path at the UCR TwoPatterns shape (1000 train / 4000
    test, T = 128, 4 classes): ``fit`` learns the support from all
    499,500 train pairs on the card, ``engine.gram`` runs K1 over
@@ -203,7 +203,8 @@ def phase_build():
         info = _build.BUILD_LOG.get(name, {})
         log(f"build: {name}.cu in {info.get('seconds', 0.0):.1f} s")
         for line in info.get("log", "").splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "Compiling entry",
+                                       "spill")):
                 log(f"  ptxas: {line.strip()}")
     log(f"build: all sources in {time.perf_counter() - t0:.1f} s")
 
@@ -237,7 +238,8 @@ def _check_case(label, bsp, A, B, T):
         worst[kernel][0] = max(worst[kernel][0], ab)
         worst[kernel][1] = max(worst[kernel][1], rel)
         log(f"  {label} {what}: max abs {ab:.3g} max rel {rel:.3g}")
-        require(rel <= REL_LIMIT, f"{label} {what}: rel {rel} > {REL_LIMIT}")
+        require(torch.equal(got, want), f"{label} {what}: not bit for bit "
+                f"(rel {rel})")
 
     G = gb.gram_spdtw_block(A, B, bsp, T_orig=T)
     Gp = gb.gram_spdtw_scan(A, B, bsp, T_orig=T, block_a=A.shape[0])
@@ -282,8 +284,9 @@ def phase_kernels():
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     worst = {k: [0.0, 0.0] for k in KERNELS}
-    cases = [(8, 1, 70), (16, 1, 100), (16, 3, 100), (32, 1, 150),
-             (64, 1, 150), (128, 1, 200), (128, 3, 200)]
+    cases = [(8, 1, 70), (8, 3, 70), (16, 1, 100), (16, 3, 100),
+             (32, 1, 150), (32, 3, 150), (64, 1, 150), (128, 1, 200),
+             (128, 3, 200)]
     for S, d, T in cases:
         bsp = block_sparsify(_random_support(T, seed=S + d), tile=S)
         shape = (lambda n: (n, T)) if d == 1 else (lambda n: (n, T, d))
@@ -326,7 +329,12 @@ def _check_slice2():
     versions at T in {24, 100, 128, 300}: K3 / K4 for nu in {0.1, 0.5, 2}
     on the full grid, a corridor and a support (learned from CBF at
     T = 128); K5 / K6 over the TwoPatterns radius grid up to w = 26, at
-    d in {1, 3}. K3 and K4 must agree bit for bit on the same pairs."""
+    d in {1, 3}. Past the old length and width limits, at T = 1024: K3 /
+    K4 at nu = 0.5 on the full grid (the wide sweep), the radius-6
+    corridor and a band support (the narrow sweep), and K6 at w = 204 (a
+    409-cell strip, the shared-memory sweep) and K5 on the full grid (its
+    shared-memory diagonals past T = 512). K3, K4 and K6 must equal
+    their plain versions bit for bit, and K3 and K4 each other."""
     import numpy as np
     import torch
     from repro_torch.core.occupancy import learn_sparse_paths
@@ -340,22 +348,24 @@ def _check_slice2():
     worst = {k: [0.0, 0.0] for k in ("krdtw_gram", "krdtw_paired",
                                      "dtw_wavefront", "dtw_banded")}
 
-    def record(kernel, what, got, want, limit):
+    def record(kernel, what, got, want, limit, exact=True):
         ab, rel = diff(got, want)
         worst[kernel][0] = max(worst[kernel][0], ab)
         worst[kernel][1] = max(worst[kernel][1], rel)
         log(f"  {what}: max abs {ab:.3g} max rel {rel:.3g}")
         require(rel <= limit, f"{what}: rel {rel} > {limit}")
+        if exact:
+            require(torch.equal(got, want), f"{what}: not bit for bit")
 
     ds = make_cbf(n_train=40, n_test=24, T=128)
     learned = learn_sparse_paths(torch.as_tensor(ds.X_train), theta=2.0)
-    for T in (24, 100, 128, 300):
+    for T in (24, 100, 128, 300, 1024):
         A = torch.as_tensor(rng.normal(size=(12, T)).astype(np.float32),
                             device=dev)
         B = torch.as_tensor(rng.normal(size=(16, T)).astype(np.float32),
                             device=dev)
         sup = learned.support.numpy() if T == 128 else _band_support(T, T)
-        for nu in (0.1, 0.5, 2.0):
+        for nu in ((0.5,) if T == 1024 else (0.1, 0.5, 2.0)):
             for dom, kw_ in (("full", {}), ("radius 6", {"radius": 6}),
                              ("support", {"support": sup})):
                 label = f"T={T} nu={nu} {dom}"
@@ -372,17 +382,19 @@ def _check_slice2():
                 record("krdtw_paired", f"K4 {label}", P, Pp, KREL_LIMIT)
                 require(torch.equal(P, torch.diagonal(G[:, :12])),
                         f"K3 != K4 bit for bit, {label}")
-        for d in (1, 3):
+        for d in ((1,) if T == 1024 else (1, 3)):
             shape = (16, T) if d == 1 else (16, T, d)
             x = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
                                 device=dev)
             y = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
                                 device=dev)
-            for r in (None, 0, 3, 6, 13, 26):
+            for r in ((None, 204) if T == 1024 else
+                      (None, 0, 3, 6, 13, 26)):
                 label = f"T={T} d={d} radius {r}"
                 record("dtw_wavefront", f"K5 {label}",
                        kw.wavefront_dtw(x, y, radius=r),
-                       kw.wavefront_dtw_plain(x, y, radius=r), REL_LIMIT)
+                       kw.wavefront_dtw_plain(x, y, radius=r), REL_LIMIT,
+                       exact=False)
                 if r is None:
                     continue
                 record("dtw_banded", f"K6 {label}", kb.banded_dtw(x, y, r),
@@ -390,7 +402,7 @@ def _check_slice2():
                 record("dtw_banded", f"K6 gram {label}",
                        kb.banded_dtw_gram(x[:6], y, r),
                        kb.banded_dtw_gram_plain(x[:6], y, r), REL_LIMIT)
-    log(f"  K3 == K4 bit for bit on every case")
+    log(f"  K3 == K4 bit for bit on every case; K3, K4, K6 == plain")
     return worst
 
 
@@ -993,6 +1005,33 @@ def _bound_cells(cells, flops, sfu, in_bytes, out_bytes):
 # 2 mul), K2 (3 add, 5 mul), the rescale (4 mul) = 19 FP32 operations
 # and one expf
 KRDTW_FLOPS = 19
+# per pair and diagonal k = 1 .. 2T-2, whatever the support: the rescale's
+# logf and division, 2 special-function results (lg2, rcp) and 2 FP32
+# operations (the log's scale multiply, the running sum's add)
+KRDTW_DIAG_SFU, KRDTW_DIAG_FLOPS = 2, 2
+
+
+def _krdtw_bound(pairs, T, cells, in_bytes, out_bytes):
+    """Least time (ms) of ``pairs`` log K_rdtw sweeps of ``cells``
+    admissible cells each over series of length T: the cells' operations
+    and expf, and the (2T - 2) per-diagonal rescales of every pair."""
+    diags = pairs * (2 * T - 2)
+    t_ops = max((pairs * cells * KRDTW_FLOPS + diags * KRDTW_DIAG_FLOPS)
+                / FP32_PEAK,
+                (pairs * cells + diags * KRDTW_DIAG_SFU) / SFU_RATE)
+    t_bytes = (in_bytes + out_bytes) / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _admissible_cells(T, radius=None, support=None):
+    """Cells of the T x T grid inside the corridor and the support."""
+    import numpy as np
+    i = np.arange(T)
+    ok = np.ones((T, T), bool) if support is None else np.asarray(support)
+    if radius is not None:
+        ok = ok & (np.abs(i[:, None] - i[None, :]) <= radius)
+    return int(ok.sum())
 # per needed cell of DTW: d sub, d mul, d - 1 add, then 2 min and 1 add
 def _dtw_flops(d):
     return 3 * d + 2
@@ -1005,8 +1044,9 @@ def _spdtw_flops(d):
 
 def phase_timing_slice2(kp, ds):
     """K3-K6 at the kernel path's shapes against their plain versions,
-    with their bounds. Plain K3 is timed on a 256 x 1000 slice of the
-    4000 x 1000 Gram and plain K6 on a 64 x 1000 slice (both are
+    with their bounds. K3 is timed at each of its shapes (the learned
+    support 4000 x 1000, the full grid and the radius-0 corridor 1000 x
+    1000); plain K3 and plain K6 are timed on 64 x 1000 slices (both are
     launch-bound loops over diagonals / rows)."""
     import torch
     from repro_torch.core.dtw import band_cells
@@ -1028,20 +1068,43 @@ def phase_timing_slice2(kp, ds):
         log(f"  {name} {what}: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
             f"bound {bound[0]:.4f} ms by {bound[1]}, max abs err {ab:.3g})")
 
-    # K3: the sp_krdtw Gram of the SVM and the cascade's reference
-    ms, G = cuda_ms(lambda: gb.gram_log_krdtw_block(Xte, Xtr, nu,
-                                                    support=sup),
-                    reps=3, warmup=1)
-    require(torch.equal(G, kp["LG"]), "K3 not deterministic across runs")
-    n_sl = 256
-    pms, Gp = cuda_ms(lambda: gb.gram_log_krdtw_plain(Xte[:n_sl], Xtr, nu,
-                                                      support=sup))
-    ab, rel = diff(G[:n_sl], Gp)
-    require(rel <= KREL_LIMIT, f"K3 at main shapes: rel {rel}")
-    row("krdtw_gram", ms, pms, ab,
-        _bound_cells(Na * Nb * sp.n_cells, KRDTW_FLOPS, 1,
-                     (Na + Nb) * T * 4, Na * Nb * 4),
-        f"{Na}x{Nb} sp_krdtw ({sp.n_cells} cells; plain on {n_sl}x{Nb})")
+    # K3 at each shape the kernel path launches it at: the sp_krdtw Gram of
+    # the SVM and the cascade's reference (the main shape, in the kernels
+    # line), the full-grid Grams of select_nu and the radius-0 corridor
+    # Grams of krdtw_sc; each held bit for bit against its plain version
+    # on a slice of rows
+    n_sl = 64
+    shapes = (("sp_krdtw learned support", Xte, {"support": sup}),
+              ("full grid (select_nu, krdtw)", Xtr, {}),
+              ("radius-0 corridor (krdtw_sc)", Xtr, {"radius": 0}))
+    k3 = {}
+    for what, Q, kw_ in shapes:
+        ms, G = cuda_ms(lambda: gb.gram_log_krdtw_block(Q, Xtr, nu, **kw_),
+                        reps=3, warmup=1)
+        if "support" in kw_:
+            require(torch.equal(G, kp["LG"]),
+                    "K3 not deterministic across runs")
+        pms, Gp = cuda_ms(lambda: gb.gram_log_krdtw_plain(Q[:n_sl], Xtr, nu,
+                                                          **kw_))
+        require(torch.equal(G[:n_sl], Gp),
+                f"K3 {what}: not bit for bit with the plain version")
+        ab, _ = diff(G[:n_sl], Gp)
+        cells = _admissible_cells(T, kw_.get("radius"), kw_.get("support"))
+        geo = kk.krdtw_geometry(T, kw_.get("radius"), None if "support"
+                                not in kw_ else kk.pack_diagonal_mask(
+                                    kk.mask_to_diagonal_major(sup), T,
+                                    "cpu"))
+        bound = _krdtw_bound(Q.shape[0] * Nb, T, cells,
+                             (Q.shape[0] + Nb) * T * 4, Q.shape[0] * Nb * 4)
+        k3[what] = (ms, pms, ab, bound)
+        log(f"  krdtw_gram {Q.shape[0]}x{Nb} {what} ({cells} cells, hull "
+            f"W {geo.W}, {'wide' if geo.wide else f'narrow G {geo.G}'}): "
+            f"{ms:.3f} ms (plain {pms:.1f} ms on {n_sl}x{Nb}, bound "
+            f"{bound[0]:.4f} ms by {bound[1]})")
+    ms, pms, ab, bound = k3["sp_krdtw learned support"]
+    rows.append({"name": "krdtw_gram", "ms": ms, "plain_ms": pms,
+                 "max_abs_err": ab, "bound_ms": bound[0],
+                 "bound_by": bound[1]})
 
     # K4: the cascade's seed shapes, seed_k = 2 pairs per query
     nn = kp["nn"].long()
@@ -1055,10 +1118,10 @@ def phase_timing_slice2(kp, ds):
     pms, Pp = cuda_ms(lambda: kk.wavefront_log_krdtw_plain(x, y, nu,
                                                            mask_diag=md))
     ab, rel = diff(P, Pp)
-    require(rel <= KREL_LIMIT, f"K4 at main shapes: rel {rel}")
+    require(torch.equal(P, Pp), f"K4 at main shapes: rel {rel}")
     B = x.shape[0]
     row("krdtw_paired", ms, pms, ab,
-        _bound_cells(B * sp.n_cells, KRDTW_FLOPS, 1, 2 * B * T * 4, B * 4),
+        _krdtw_bound(B, T, sp.n_cells, 2 * B * T * 4, B * 4),
         f"{B} pairs sp_krdtw")
 
     # K5: DTW over the 4000 (query, nearest) pairs of engine.pairs
@@ -1216,7 +1279,7 @@ def phase_timing(main):
     plain_ms, Gp = cuda_ms(lambda: gb.gram_spdtw_scan(Q, C, bsp,
                                                       block_a=500))
     ab, rel = diff(Gk, Gp)
-    require(rel <= REL_LIMIT, f"K1 at main shapes: rel {rel}")
+    require(torch.equal(Gk, Gp), f"K1 at main shapes: rel {rel}")
     require(torch.equal(Gk, G), "K1 not deterministic across runs")
     Na, Nb = Q.shape[0], C.shape[0]
     bound_ms, bound_by = _bound_cells(Na * Nb * bsp.n_active * S * S,
@@ -1238,7 +1301,7 @@ def phase_timing(main):
     plain2, Pp = cuda_ms(lambda: gb.spdtw_paired_scan(x, y, bsp,
                                                       block_p=8192))
     ab2, rel2 = diff(Pk, Pp)
-    require(rel2 <= REL_LIMIT, f"K2 at main shapes: rel {rel2}")
+    require(torch.equal(Pk, Pp), f"K2 at main shapes: rel {rel2}")
     B = x.shape[0]
     b2_ms, b2_by = _bound_cells(B * bsp.n_active * S * S, _spdtw_flops(1),
                                 0, 2 * B * T * 4 + meta_b, B * 4)
@@ -1269,8 +1332,8 @@ def kernels_line(rows, launches):
 def phase_profile(main, kp=None, cp=None):
     """Device time by kernel over one ``engine.knn``, one ``engine.gram``
     and the occupancy counts of 200 train series (torch.profiler), and,
-    after the kernel path, one sp_krdtw ``engine.knn`` and one SVM Gram
-    series, and after the centroid path, one 10-step barycenter fit of a
+    after the kernel path, one sp_krdtw ``engine.knn``, one SVM Gram
+    series, ``select_nu`` and ``select_theta_gamma``, and after the centroid path, one 10-step barycenter fit of a
     class and one centroid-seeded ``engine.knn``; with the device's busy
     share of the wall time of each call."""
     import torch
@@ -1283,13 +1346,22 @@ def phase_profile(main, kp=None, cp=None):
              ("pairwise_path_counts, 200 train series",
               lambda: pairwise_path_counts(eng.corpus[:200]))]
     if kp is not None:
-        from repro_torch.classify import svm
+        from repro_torch.classify import crossval, svm
         keng = kp["keng"]
+        Xtr, ytr = keng.corpus, main["ds"].y_train
+        n_pairs = N_TRAIN * (N_TRAIN - 1) // 2
         calls += [("sp_krdtw engine.knn", lambda: keng.knn(X)),
                   ("svm_gram_series sp_krdtw",
                    lambda: svm.svm_gram_series(keng.corpus, X,
                                                kind="sp_krdtw", sp=kp["sp"],
-                                               nu=kp["nu"]))]
+                                               nu=kp["nu"])),
+                  ("select_nu krdtw",
+                   lambda: crossval.select_nu(Xtr, ytr, grid=NU_GRID)),
+                  ("select_theta_gamma sp_krdtw",
+                   lambda: crossval.select_theta_gamma(
+                       Xtr, ytr, name="sp_krdtw",
+                       thetas=[f * n_pairs for f in THETA_SHARES],
+                       nu=kp["nu"], counts=eng.sp.counts))]
     if cp is not None:
         ceng = cp["ceng"]
         members = eng.corpus[torch.as_tensor(
@@ -1320,7 +1392,8 @@ def phase_profile(main, kp=None, cp=None):
         ours = [e.device_time_total / 1e3 for e in prof.events()
                 if e.device_type == DeviceType.CUDA
                 and any(k in e.name for k in ("gram_kernel", "paired_kernel",
-                                              "krdtw_kernel",
+                                              "thread_kernel",
+                                              "narrow_kernel", "wide_kernel",
                                               "wavefront_kernel",
                                               "banded_kernel", "fwd_kernel",
                                               "bwd_kernel"))]
@@ -1348,29 +1421,38 @@ def main(argv=None) -> int:
     phase_build()
     if args.stop_after < 2:
         return 0
-    log("phase 2: kernels against their plain versions")
+    log(f"phase 2: kernels against their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
     phase_kernels()
     if args.stop_after < 3:
         return 0
-    log(f"phase 3: main path, TwoPatterns {N_TRAIN}/{N_TEST}, T={T_MAIN}")
+    log(f"phase 3: main path, TwoPatterns {N_TRAIN}/{N_TEST}, T={T_MAIN} "
+        f"({time.perf_counter() - t0:.1f} s)")
     main_out = phase_main_path()
     log(f"phase 3b: kernel-measure and baseline path, TwoPatterns "
-        f"{N_TRAIN}/{N_TEST}, T={T_MAIN}")
+        f"{N_TRAIN}/{N_TEST}, T={T_MAIN} ({time.perf_counter() - t0:.1f} s)")
     kp = phase_kernel_path(main_out)
     log(f"phase 3c: centroid and soft-Gram path, TwoPatterns "
-        f"{N_TRAIN}/{N_TEST}, T={T_MAIN}")
+        f"{N_TRAIN}/{N_TEST}, T={T_MAIN} ({time.perf_counter() - t0:.1f} s)")
     cp = phase_centroid_path(main_out)
     log("profile: device time by kernel")
     phase_profile(main_out, kp, cp)
     if args.stop_after < 4:
         return 0
-    log("phase 4: kernel timing at the paths' shapes")
+    log(f"phase 4: kernel timing at the paths' shapes "
+        f"({time.perf_counter() - t0:.1f} s)")
     rows = phase_timing(main_out) + phase_timing_slice2(kp, main_out["ds"]) \
         + phase_timing_soft(main_out, cp)
     launches = {k: main_out["launches"][k] for k in SLICE1}
     launches.update({k: kp["launches"][k] for k in KERNELS
                      if k not in SLICE1 and k not in SOFT})
     launches.update({k: cp["launches"][k] for k in SOFT})
+    for what, lc in (("SP-DTW path (phase 3)", main_out["launches"]),
+                     ("kernel-measure path (phase 3b)", kp["launches"]),
+                     ("centroid path (phase 3c)", cp["launches"])):
+        log(f"  K1-K4 launches on the {what}: " + ", ".join(
+            f"{k} {lc[k]}" for k in ("spdtw_tiles_gram", "spdtw_tiles_paired",
+                                     "krdtw_gram", "krdtw_paired")))
     kernels = kernels_line(rows, launches)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card_line())

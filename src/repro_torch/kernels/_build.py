@@ -35,17 +35,19 @@ _F = ctypes.c_float
 SIGNATURES = {
     "spdtw_tiles": {
         "spdtw_tiles_gram": (_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P,
-                             _I, _I, _I, _I, _P, _P),
+                             _I, _I, _I, _I, _I, _P, _P),
         "spdtw_tiles_paired": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
-                               _I, _I, _P, _P),
+                               _I, _I, _I, _P, _P),
     },
     "krdtw_wavefront": {
-        "krdtw_gram": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
-        "krdtw_paired": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
+        "krdtw_gram": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _I, _I, _I,
+                       _P, _P),
+        "krdtw_paired": (_P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _I, _I,
+                         _I, _P, _P),
     },
     "dtw_wavefront": {
         "dtw_wavefront": (_P, _P, _I, _I, _I, _I, _P, _P),
-        "dtw_banded": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+        "dtw_banded": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     },
     "soft_tiles": {
         "soft_tiles_fwd": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F,

@@ -23,12 +23,17 @@
 //   K5: one warp owns one pair; lane l holds diagonal positions
 //       i = l * C .. l * C + C - 1 (C = 1, 2, 4, 8 or 16; T <= 512). The
 //       i - 1 neighbour is a register or one __shfl_up_sync. The Sakoe-Chiba
-//       radius is the test |2i - k| <= r on each position.
+//       radius is the test |2i - k| <= r on each position. Longer series
+//       keep the three live diagonals in shared memory
+//       (``wavefront_wide_kernel``).
 //   K6: a group of G lanes owns one pair (G the power of two >= 2w+1, at
 //       most 32, so several pairs share a warp when the strip is narrow);
 //       lane l holds strip cells u = c * G + l (C = ceil((2w+1)/G) <= 8).
 //       With C = 1 the in-row scan and the top neighbour are shuffles inside
-//       the group; with C > 1 they go through per-pair shared memory. In
+//       the group; with C > 1 they go through per-pair shared memory.
+//       Strips wider than 256 (``strip_pair_wide``) give each pair a warp
+//       whose lanes loop over the strip, with the row and the scan in
+//       shared memory, so any radius runs. In
 //       the Gram mode pair p is (A row p / Nb, B row p % Nb), so the dtw_sc
 //       Gram never expands the series into a pair batch.
 // Series are read from device memory through L1: each pair rereads its own
@@ -111,6 +116,68 @@ wavefront_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     if (lane * C + c == T - 1) res = dm1[c];
   res = __shfl_sync(0xffffffffu, res, (T - 1) / C);
   if (lane == 0) out[p] = res;
+}
+
+// Series longer than the register layout holds (T > 512): one warp per
+// pair, the three live diagonals in per-pair shared memory (T floats each,
+// rotating), lanes looping over the positions; the arithmetic is
+// wavefront_kernel's, position for position.
+__global__ void wavefront_wide_kernel(const float* __restrict__ X,
+                                      const float* __restrict__ Y, int P,
+                                      int T, int d, int radius,
+                                      float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= P) return;
+  const float* x = X + p * T * d;
+  const float* y = Y + p * T * d;
+  float* buf = smem + (size_t)warp * 3 * T;
+  int c1 = 0, c2 = 1, cn = 2;   // diagonals k-1, k-2, k
+  for (int i = lane; i < T; i += 32) {
+    buf[i] = i == 0 ? cost(x, y, 0, 0, d) : kInf;   // cell (0, 0)
+    buf[T + i] = kInf;
+  }
+  __syncwarp();
+  for (int k = 1; k < 2 * T - 1; ++k) {
+    const float* dm1 = buf + c1 * T;
+    const float* dm2 = buf + c2 * T;
+    float* dk = buf + cn * T;
+    for (int i = lane; i < T; i += 32) {
+      const int j = k - i;
+      bool valid = j >= 0 && j < T;
+      if (radius >= 0) valid = valid && abs(2 * i - k) <= radius;
+      const float cst = valid ? cost(x, y, i, j, d) : kInf;
+      const float sh1 = i ? dm1[i - 1] : kInf;
+      const float sh2 = i ? dm2[i - 1] : kInf;
+      const float best = fminf(fminf(sh1, dm1[i]), sh2);
+      dk[i] = fminf(__fadd_rn(cst, best), kInf);
+    }
+    __syncwarp();
+    const int t = c2;
+    c2 = c1;
+    c1 = cn;
+    cn = t;
+  }
+  if (lane == 0) out[p] = buf[c1 * T + T - 1];
+}
+
+int wavefront_wide(const float* X, const float* Y, int P, int T, int d,
+                   int radius, float* out, cudaStream_t stream) {
+  const size_t per = (size_t)3 * T * 4;
+  const int warps = (int)(232448 / per < 4 ? 232448 / per : 4);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = warps * per;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        wavefront_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long grid = ((long long)P + warps - 1) / warps;
+  wavefront_wide_kernel<<<dim3((unsigned)grid), dim3(warps * 32), smem,
+                          stream>>>(X, Y, P, T, d, radius, out);
+  return (int)cudaGetLastError();
 }
 
 template <int C>
@@ -238,6 +305,94 @@ banded_kernel(const float* __restrict__ A, const float* __restrict__ B,
   if (lane == 0) out[p] = v;
 }
 
+// One pair's strip sweep by one warp, for strips wider than the register
+// templates hold (2w+1 > 256): the previous row and the scan's m and s
+// (double-buffered) live in per-pair shared memory, W = 2w+1 floats each,
+// and lane l holds strip cells u = l, l + 32, ... The arithmetic is
+// strip_pair's, cell for cell. Returns D(T-1, T-1) on every lane.
+__device__ float strip_pair_wide(const float* __restrict__ x,
+                                 const float* __restrict__ y, int T, int d,
+                                 int w, int lane, float* buf) {
+  const int W = 2 * w + 1;
+  float* sd = buf;              // the previous row
+  float* sm[2] = {buf + W, buf + 2 * W};
+  float* ss[2] = {buf + 3 * W, buf + 4 * W};
+  for (int u = lane; u < W; u += 32) sd[u] = kInf;
+  __syncwarp();
+  for (int t = 0; t < T; ++t) {
+    for (int u = lane; u < W; u += 32) {
+      const int j = t - w + u;
+      const float cst = (j >= 0 && j < T) ? cost(x, y, t, j, d) : kInf;
+      float m;
+      if (t == 0) {
+        m = u == w ? cst : kInf;   // only cell (0, 0) starts a path
+      } else {
+        const float top = u + 1 < W ? sd[u + 1] : kInf;
+        m = __fadd_rn(cst, fminf(top, sd[u]));
+      }
+      sm[0][u] = m;
+      ss[0][u] = cst;
+    }
+    __syncwarp();
+    int cur = 0;
+    for (int dd = 1; dd < W; dd <<= 1) {
+      const float* mi = sm[cur];
+      const float* si = ss[cur];
+      float* mo = sm[cur ^ 1];
+      float* so = ss[cur ^ 1];
+      for (int u = lane; u < W; u += 32) {
+        const float m_sh = u >= dd ? mi[u - dd] : kInf;
+        const float s_sh = u >= dd ? si[u - dd] : 0.f;
+        mo[u] = fminf(mi[u], __fadd_rn(m_sh, si[u]));
+        so[u] = fminf(__fadd_rn(s_sh, si[u]), kInf);
+      }
+      __syncwarp();
+      cur ^= 1;
+    }
+    // row 0 is not clamped (the reference's), later rows are
+    for (int u = lane; u < W; u += 32)
+      sd[u] = t == 0 ? sm[cur][u] : fminf(sm[cur][u], kInf);
+    __syncwarp();
+  }
+  return sd[w];
+}
+
+__global__ void banded_wide_kernel(const float* __restrict__ A,
+                                   const float* __restrict__ B, int Na,
+                                   int Nb, int gram, int T, int d, int w,
+                                   float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  const long long p = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= P) return;
+  const long long a = gram ? p / Nb : p;
+  const long long b = gram ? p % Nb : p;
+  const float v = strip_pair_wide(A + a * T * d, B + b * T * d, T, d, w,
+                                  lane, smem + (size_t)warp * 5 * (2 * w + 1));
+  if (lane == 0) out[p] = v;
+}
+
+int banded_wide(const float* A, const float* B, int Na, int Nb, int gram,
+                int T, int d, int w, int warps, float* out,
+                cudaStream_t stream) {
+  const size_t smem = (size_t)warps * 5 * (2 * w + 1) * 4;
+  if (warps < 1 || warps > 32 || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        banded_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  const long long grid = (P + warps - 1) / warps;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  banded_wide_kernel<<<dim3((unsigned)grid), dim3(warps * 32), smem,
+                       stream>>>(A, B, Na, Nb, gram, T, d, w, out);
+  return (int)cudaGetLastError();
+}
+
 template <int G, int C>
 int banded_gc(const float* A, const float* B, int Na, int Nb, int gram,
               int T, int d, int w, float* out, cudaStream_t stream) {
@@ -267,14 +422,16 @@ int dtw_wavefront(const float* X, const float* Y, int P, int T, int d,
   if (per_lane <= 4) return wavefront_c<4>(X, Y, P, T, d, radius, out, st);
   if (per_lane <= 8) return wavefront_c<8>(X, Y, P, T, d, radius, out, st);
   if (per_lane <= 16) return wavefront_c<16>(X, Y, P, T, d, radius, out, st);
-  return (int)cudaErrorInvalidValue;
+  return wavefront_wide(X, Y, P, T, d, radius, out, st);
 }
 
 // Sakoe-Chiba DTW of half-width w in the slanted strip. gram != 0: the
 // (Na, Nb) grid of A rows x B rows; gram == 0: the (Na,) aligned pairs
-// (A row p, B row p). A (Na, T, d), B (Nb, T, d).
+// (A row p, B row p). A (Na, T, d), B (Nb, T, d). Strips of 2w+1 <= 256
+// run the register templates; wider ones the shared-memory sweep, with
+// ``warps`` pairs per block (``dtw_banded.banded_geometry``).
 int dtw_banded(const float* A, const float* B, int Na, int Nb, int gram,
-               int T, int d, int w, float* out, void* stream) {
+               int T, int d, int w, int warps, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int W = 2 * w + 1;
   if (T < 1 || d < 1 || w < 0) return (int)cudaErrorInvalidValue;
@@ -289,7 +446,7 @@ int dtw_banded(const float* A, const float* B, int Na, int Nb, int gram,
   if (W <= 128) return BANDED(32, 4);
   if (W <= 256) return BANDED(32, 8);
 #undef BANDED
-  return (int)cudaErrorInvalidValue;
+  return banded_wide(A, B, Na, Nb, gram, T, d, w, warps, out, st);
 }
 
 }  // extern "C"

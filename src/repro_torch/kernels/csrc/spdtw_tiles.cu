@@ -8,34 +8,43 @@
 //             (entry spdtw_block), the TPU kernel K2.
 // Both walk the row-major active-tile plan of ``occupancy._tile_plan`` and
 // run the per-tile DP of ``spdtw_block.tile_sweep``; they share one
-// __device__ sweep (``sweep_pair``) so that K1 and K2 give identical values
-// for the same pair, and both repeat the plain PyTorch versions
-// (``gram_block.gram_spdtw_scan`` / ``spdtw_paired_scan``) operation by
-// operation, so the results are bit-identical to them.
+// __device__ sweep per route (``sweep_thread``, ``sweep_pair``) so that K1
+// and K2 give identical values for the same pair, and both repeat the
+// plain PyTorch versions (``gram_block.gram_spdtw_scan`` /
+// ``spdtw_paired_scan``) operation by operation, so the results are
+// bit-identical to them.
 //
 // What bounds them on this card. Each DP row is a serial min-plus chain:
 // the in-row dependency D(i, j-1) is resolved by a Hillis-Steele scan of
-// log2(S) dependent shuffle steps, and the tiles of one pair run one after
-// the other. The work is FP32 ALU work outside the tensor cores (sub, mul,
-// add, min), and the inputs are small (a few MB of series, the plan and
-// the weight blocks), so device-memory traffic is negligible: the kernels
-// are bound by instruction latency and FP32 instruction rate, not bytes.
+// log2(S) levels (about 4 log2 S operations per cell), and the tiles of one
+// pair run one after the other. The work is FP32 ALU work outside the
+// tensor cores (sub, mul, add, min), and the inputs are small (a few MB of
+// series, the plan and the weight blocks), so device-memory traffic is
+// negligible: the kernels are bound by FP32 instruction throughput.
 //
 // What the design does about it. The TPU kernel walked (A-block, B-block)
 // pair tiles through a sequential grid axis and carried edges in VMEM
 // scratch. Here the sequential grid axis is a loop inside the kernel, and
-// the parallelism is across pairs instead: a group of min(S, 32) lanes
-// owns one pair (two pairs per warp at S = 16, four at S = 8; at S > 32 a
-// lane holds S/32 cells), so thousands of independent pairs hide each
-// other's shuffle latency. Per pair, the bottom edges of the previous tile
-// row (``row_edge``, Tp floats) and the right edge of the left tile
-// (``col_edge``, S floats) live in shared memory; the corner, the alive
-// flag and the result capture live in registers. The plan (``meta``,
-// n_steps x 7 int32) and the weight blocks are read from device memory
-// (through L1/L2; every pair reads the same ones), in place of the TPU's
-// scalar prefetch. Pruning is per pair: a pair whose incoming edges all
-// exceed its threshold skips the tile and publishes +INF edges, which is
-// exactly what its pruned sweep would have produced.
+// the parallelism is across pairs instead.
+//   S in {8, 16, 32} (``thread_kernel``, every T <= 256 under
+//   default_tile): one thread owns one pair and holds the tile row in
+//   registers, so the scan's levels are independent register operations
+//   with compile-time indices; no shuffles, no lane selects. The step's
+//   weight block is staged once per block in shared memory and read as a
+//   broadcast, and the edges sit in shared memory as [column][pair]
+//   (``sweep_thread`` below).
+//   S in {64, 128}, or edges too long for the thread route's shared memory
+//   (``gram_kernel`` / ``paired_kernel``): a group of min(S, 32) lanes owns
+//   one pair (a lane holds S/32 cells), the scan runs on shuffles or
+//   through per-pair shared memory, and the bottom edges of the previous
+//   tile row (``row_edge``, Tp floats) and the right edge of the left tile
+//   (``col_edge``, S floats) live in shared memory per pair.
+// ``spdtw_block.tile_geometry`` picks the route. In both, the plan
+// (``meta``, n_steps x 7 int32) and the weight blocks are read from device
+// memory through L1/L2, in place of the TPU's scalar prefetch, and pruning
+// is per pair: a pair whose incoming edges all exceed its threshold skips
+// the tile and publishes +INF edges, which is exactly what its pruned sweep
+// would have produced.
 //
 // Floating point. The cost row and u = c + min(top, topleft) use the
 // _rn intrinsics, and the file is built with --fmad=false, so no multiply
@@ -247,6 +256,275 @@ __device__ float sweep_pair(const float* __restrict__ x,
   return alive ? res : kInf;
 }
 
+// ------------------------------------------------- one thread per pair ----
+//
+// For S in {8, 16, 32}: one thread owns one pair and holds the tile row in
+// registers, so the in-row scan runs with compile-time indices (no shuffles,
+// no lane selects) in the association of _minplus_scan_lanes, the
+// min(m, INF + s) terms for j < dd included. The block's threads walk the
+// same plan, so each step's S x S weight block is staged once into shared
+// memory and read as a broadcast; the bottom edges (Tp floats per pair) and
+// the right column (S floats) sit in shared memory as [column][pair], so
+// neighbouring threads hit neighbouring banks. D > 0: the pair's y tile (D
+// channels) in registers; D = 0: d channels, the y tile in shared memory
+// as [channel * S + column][pair]. Abandoned and pruned pairs, and the
+// block's tail past the last pair, stay in the step loop as dead threads,
+// so that every thread meets the block's barriers.
+template <int S, int D>
+__device__ float sweep_thread(const float* __restrict__ x,
+                              const float* __restrict__ y, int d, int Tp,
+                              const int* __restrict__ meta, int n_steps,
+                              const float* __restrict__ blocks, float thr,
+                              bool alive, bool prune, int g_out, int r,
+                              bool prefix, float* row_edge, float* col,
+                              float* ysh, float* ws, int slot, int nt) {
+  for (int j = 0; j < Tp; ++j) row_edge[j * nt + slot] = kInf;
+#pragma unroll
+  for (int t = 0; t < S; ++t) col[t * nt + slot] = kInf;
+  float corner = kInf;   // top_vec[S-1] of the previous step
+  float res = kInf;      // the result cell
+  constexpr int DR = D > 0 ? D : 1;
+  float yv[DR][S];
+
+  for (int k = 0; k < n_steps; ++k) {
+    const int* m = meta + 7 * k;
+    const int ti = __ldg(m), tj = __ldg(m + 1), wslot = __ldg(m + 2);
+    const bool top_ok = __ldg(m + 3) > 0, left_ok = __ldg(m + 4) > 0,
+               diag_ok = __ldg(m + 5) > 0, row_first = __ldg(m + 6) > 0;
+    __syncthreads();   // the previous step's weights have been read
+    for (int e = threadIdx.x; e < S * S; e += blockDim.x)
+      ws[e] = __ldg(blocks + (size_t)wslot * S * S + e);
+    __syncthreads();
+    // early abandon at the first tile of a new tile row
+    if (alive && row_first && k > 0 && k <= g_out) {
+      float b = kInf;
+      for (int j = 0; j < Tp; ++j) b = fminf(b, row_edge[j * nt + slot]);
+      alive = b <= thr;
+    }
+    if (!alive) continue;
+    float dprev[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      dprev[j] = top_ok ? row_edge[(tj * S + j) * nt + slot] : kInf;
+    float c_first;
+    if (k == 0) c_first = 0.f;
+    else if (diag_ok)
+      c_first = left_ok ? corner : row_edge[(tj * S - 1) * nt + slot];
+    else c_first = kInf;
+    const float new_corner = dprev[S - 1];
+
+    if (prune) {
+      float mt = kInf, ml = kInf;
+#pragma unroll
+      for (int j = 0; j < S; ++j) mt = fminf(mt, dprev[j]);
+      if (left_ok) {
+#pragma unroll
+        for (int t = 0; t < S; ++t) ml = fminf(ml, col[t * nt + slot]);
+      }
+      if (!(mt <= thr || ml <= thr || c_first <= thr)) {
+        // what the pruned sweep would publish: all-+INF edges
+#pragma unroll
+        for (int j = 0; j < S; ++j) row_edge[(tj * S + j) * nt + slot] = kInf;
+#pragma unroll
+        for (int t = 0; t < S; ++t) col[t * nt + slot] = kInf;
+        if (k == g_out) res = kInf;
+        corner = new_corner;
+        continue;
+      }
+    }
+
+    const float* __restrict__ xt = x + (size_t)ti * d * S;
+    const float* __restrict__ yt = y + (size_t)tj * d * S;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int kk = 0; kk < D; ++kk)
+#pragma unroll
+        for (int j4 = 0; j4 < S / 4; ++j4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(
+              yt + kk * S) + j4);
+          yv[kk][4 * j4] = v.x;
+          yv[kk][4 * j4 + 1] = v.y;
+          yv[kk][4 * j4 + 2] = v.z;
+          yv[kk][4 * j4 + 3] = v.w;
+        }
+    } else {
+      for (int e = 0; e < d * S; ++e) ysh[e * nt + slot] = __ldg(yt + e);
+    }
+    float tl0 = c_first;
+#pragma unroll 1
+    for (int t = 0; t < S; ++t) {
+      const float lt = left_ok ? col[t * nt + slot] : kInf;
+      float mm[S], ss[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        float acc;
+        if constexpr (D > 0) {
+          acc = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < D; ++kk) {
+            const float df = __fsub_rn(__ldg(xt + kk * S + t), yv[kk][j]);
+            const float dk = __fmul_rn(df, df);
+            acc = kk == 0 ? dk : __fadd_rn(acc, dk);
+          }
+        } else {
+          acc = 0.f;
+          for (int kk = 0; kk < d; ++kk) {
+            const float df = __fsub_rn(__ldg(xt + kk * S + t),
+                                       ysh[(kk * S + j) * nt + slot]);
+            const float dk = __fmul_rn(df, df);
+            acc = kk == 0 ? dk : __fadd_rn(acc, dk);
+          }
+        }
+        const float wv = ws[t * S + j];
+        ss[j] = wv > 0.f ? __fmul_rn(acc, wv) : kInf;
+        // topleft: column j-1 of the previous row; column 0 takes tl0
+        const float tlv = j ? dprev[j - 1] : tl0;
+        mm[j] = __fadd_rn(ss[j], fminf(dprev[j], tlv));
+      }
+      // the left tile's boundary enters as a virtual D_{-1}
+      mm[0] = fminf(mm[0], __fadd_rn(lt, ss[0]));
+      // Hillis-Steele min-plus scan, the association of
+      // spdtw_block._minplus_scan_lanes: m = min(m, m_sh + s) with the old
+      // s, then s = min(s_sh + s, INF); j runs down so that every level
+      // reads the previous level's values
+#pragma unroll
+      for (int dd = 1; dd < S; dd <<= 1) {
+#pragma unroll
+        for (int j = S - 1; j >= 0; --j) {
+          const float m_sh = j >= dd ? mm[j - dd] : kInf;
+          const float s_sh = j >= dd ? ss[j - dd] : 0.f;
+          mm[j] = fminf(mm[j], __fadd_rn(m_sh, ss[j]));
+          ss[j] = fminf(__fadd_rn(s_sh, ss[j]), kInf);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        float out = fminf(mm[j], kInf);
+        if (prune) out = out <= thr ? out : kInf;
+        dprev[j] = out;
+        if (k == g_out && t == r && j == r) res = out;
+      }
+      col[t * nt + slot] = dprev[S - 1];
+      tl0 = lt;
+    }
+#pragma unroll
+    for (int j = 0; j < S; ++j) row_edge[(tj * S + j) * nt + slot] = dprev[j];
+    corner = new_corner;
+  }
+
+  if (prefix) {
+    float b = kInf;
+    for (int j = 0; j < Tp; ++j) b = fminf(b, row_edge[j * nt + slot]);
+    return b;
+  }
+  return alive ? res : kInf;
+}
+
+// shared floats of one block of nt threads: row edges, right columns, the
+// weight block, and the y tiles when they do not sit in registers
+template <int S, int D>
+__host__ __device__ constexpr size_t thread_smem_floats(int Tp, int d,
+                                                        int nt) {
+  return (size_t)nt * (Tp + S) + S * S + (D == 0 ? (size_t)nt * d * S : 0);
+}
+
+// K1 (gram) / K2 (!gram), one thread per pair.
+template <int S, int D>
+__global__ void thread_kernel(const float* __restrict__ A,
+                              const float* __restrict__ B, int Na, int Nb,
+                              int gram, int d, int Tp,
+                              const int* __restrict__ meta, int n_steps,
+                              const float* __restrict__ blocks,
+                              const float* __restrict__ thr,
+                              const uint8_t* __restrict__ alive0, int prune,
+                              int g_out, int r, int prefix,
+                              float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int nt = blockDim.x, slot = threadIdx.x;
+  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  const long long p = (long long)blockIdx.x * nt + slot;
+  const bool real = p < P;
+  const long long q = real ? p : P - 1;
+  const long long a = gram ? q / Nb : q;
+  const long long b = gram ? q % Nb : q;
+  float* row_edge = smem;
+  float* col = row_edge + (size_t)nt * Tp;
+  float* ws = col + (size_t)nt * S;
+  float* ysh = ws + S * S;
+  bool alive = real;
+  if (real && alive0 != nullptr) alive = alive0[p] != 0;
+  const float v = sweep_thread<S, D>(
+      A + a * d * Tp, B + b * d * Tp, d, Tp, meta, n_steps, blocks,
+      thr ? thr[a] : kInf, alive, prune != 0, g_out, r, prefix != 0,
+      row_edge, col, ysh, ws, slot, nt);
+  if (real) out[p] = v;
+}
+
+template <int S, int D>
+int thread_sd(const float* A, const float* B, int Na, int Nb, int gram,
+              int d, int Tp, const int* meta, int n_steps,
+              const float* blocks, const float* thr, const uint8_t* alive0,
+              int prune, int g_out, int r, int prefix, int nt, float* out,
+              cudaStream_t stream) {
+  const size_t smem = thread_smem_floats<S, D>(Tp, d, nt) * 4;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        thread_kernel<S, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  const long long grid = (P + nt - 1) / nt;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  thread_kernel<S, D><<<dim3((unsigned)grid), dim3(nt), smem, stream>>>(
+      A, B, Na, Nb, gram, d, Tp, meta, n_steps, blocks, thr, alive0, prune,
+      g_out, r, prefix, out);
+  return (int)cudaGetLastError();
+}
+
+// the register channels of the thread path: d itself where S * d <= 64,
+// else 0 (the y tile in shared memory)
+template <int S>
+int thread_s(const float* A, const float* B, int Na, int Nb, int gram,
+             int d, int Tp, const int* meta, int n_steps, const float* blocks,
+             const float* thr, const uint8_t* alive0, int prune, int g_out,
+             int r, int prefix, int nt, float* out, cudaStream_t stream) {
+  const int D = (d <= 3 && S * d <= 64) ? d : 0;
+#define THREAD(DD) thread_sd<S, DD>(A, B, Na, Nb, gram, d, Tp, meta, \
+                                    n_steps, blocks, thr, alive0, prune, \
+                                    g_out, r, prefix, nt, out, stream)
+  switch (D) {
+    case 1: return THREAD(1);
+    case 2: return THREAD(2);
+    case 3: return THREAD(S * 3 <= 64 ? 3 : 0);
+    default: return THREAD(0);
+  }
+#undef THREAD
+}
+
+int thread_route(const float* A, const float* B, int Na, int Nb, int gram,
+                 int d, int Tp, const int* meta, int n_steps,
+                 const float* blocks, int S, const float* thr,
+                 const uint8_t* alive0, int prune, int g_out, int r,
+                 int prefix, int nt, float* out, cudaStream_t st) {
+  if (nt < 1 || nt > 1024 || d < 1) return (int)cudaErrorInvalidValue;
+  switch (S) {
+    case 8: return thread_s<8>(A, B, Na, Nb, gram, d, Tp, meta, n_steps,
+                               blocks, thr, alive0, prune, g_out, r, prefix,
+                               nt, out, st);
+    case 16: return thread_s<16>(A, B, Na, Nb, gram, d, Tp, meta, n_steps,
+                                 blocks, thr, alive0, prune, g_out, r,
+                                 prefix, nt, out, st);
+    case 32: return thread_s<32>(A, B, Na, Nb, gram, d, Tp, meta, n_steps,
+                                 blocks, thr, alive0, prune, g_out, r,
+                                 prefix, nt, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------- lane groups: S > 32, or edges too long ----
+
 struct Lanes {
   int slot;        // pair slot within the block
   int lane;        // lane within the pair's group
@@ -357,12 +635,17 @@ extern "C" {
 // (Na, Nb) Gram. thr (Na,) and alive0 (Na*Nb, bool bytes) may be null.
 // prefix != 0: run the n_steps given, skip result capture, and write
 // min(row_edge) per pair (the cascade's prefix bound).
+// nt > 0: one thread per pair, nt threads per block (S in {8, 16, 32});
+// nt = 0: lane groups (``spdtw_block.tile_geometry`` decides).
 int spdtw_tiles_gram(const float* A, const float* B, int Na, int Nb, int d,
                      int Tp, const int* meta, int n_steps,
                      const float* blocks, int S, const float* thr,
                      const uint8_t* alive0, int prune, int g_out, int r,
-                     int prefix, float* out, void* stream) {
+                     int prefix, int nt, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (nt > 0)
+    return thread_route(A, B, Na, Nb, 1, d, Tp, meta, n_steps, blocks, S,
+                        thr, alive0, prune, g_out, r, prefix, nt, out, st);
   switch (S) {
     case 8: return gram_s<8>(A, B, Na, Nb, d, Tp, meta, n_steps, blocks,
                              thr, alive0, prune, g_out, r, prefix, out, st);
@@ -383,8 +666,11 @@ int spdtw_tiles_gram(const float* A, const float* B, int Na, int Nb, int d,
 int spdtw_tiles_paired(const float* X, const float* Y, int P, int d, int Tp,
                        const int* meta, int n_steps, const float* blocks,
                        int S, const float* thr, int prune, int g_out, int r,
-                       float* out, void* stream) {
+                       int nt, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (nt > 0)
+    return thread_route(X, Y, P, P, 0, d, Tp, meta, n_steps, blocks, S, thr,
+                        nullptr, prune, g_out, r, 0, nt, out, st);
   switch (S) {
     case 8: return paired_s<8>(X, Y, P, d, Tp, meta, n_steps, blocks, thr,
                                prune, g_out, r, out, st);

@@ -26,8 +26,37 @@ from . import _build
 from .dtw_wavefront import _as_channels
 from .spdtw_block import INF, _check_operand, _minplus_scan_lanes, _stream_ptr
 
-# widest strip K6 takes: 2w + 1 <= 256 lanes
-MAX_WIDTH = 256
+# widest strip K6's register templates take (2w + 1 <= 256); wider strips
+# run its shared-memory sweep
+REG_WIDTH = 256
+SMEM_MAX = 232448
+# pairs (warps) per block of the shared-memory sweep, at most
+WIDE_WARPS = 4
+
+
+def banded_geometry(radius: int) -> dict:
+    """How K6 sweeps a strip of 2w+1 cells: ``lanes`` per pair (G),
+    ``cells`` per lane (C), ``pairs_per_block``, ``smem_bytes`` of a block
+    and ``wide`` (the shared-memory sweep, one warp per pair, for 2w+1 >
+    256). Mirrors ``dtw_banded`` in ``csrc/dtw_wavefront.cu``."""
+    W = 2 * int(radius) + 1
+    if W <= REG_WIDTH:
+        G = 1
+        while G < min(W, 32):
+            G *= 2
+        C = -(-W // G)
+        C = 1 << (C - 1).bit_length()
+        ppb = 4 * (32 // G)
+        return {"wide": False, "lanes": G, "cells": C,
+                "pairs_per_block": ppb,
+                "smem_bytes": ppb * 3 * C * G * 4 if C > 1 else 0}
+    per = 5 * W * 4         # the previous row and the scan's m, s (x2)
+    warps = min(WIDE_WARPS, SMEM_MAX // per)
+    if warps < 1:
+        raise ValueError(f"radius {radius}: the strip's shared memory "
+                         f"({per} bytes) exceeds the card's {SMEM_MAX}")
+    return {"wide": True, "lanes": 32, "cells": -(-W // 32),
+            "pairs_per_block": warps, "smem_bytes": warps * per}
 
 
 def banded_dtw_plain(x: torch.Tensor, y: torch.Tensor,
@@ -94,9 +123,7 @@ def dtw_banded_cuda(A: torch.Tensor, B: torch.Tensor, radius: int, *,
     Nb = B.shape[0]
     if not gram and Nb != Na:
         raise ValueError(f"aligned pairs need equal counts, got {Na}, {Nb}")
-    if 2 * radius + 1 > MAX_WIDTH:
-        raise ValueError(f"radius {radius}: the strip 2w+1 exceeds "
-                         f"{MAX_WIDTH} lanes")
+    geo = banded_geometry(radius)
     _check_operand("A", A, (Na, T, d), dev)
     _check_operand("B", B, (Nb, T, d), dev)
     out = torch.empty((Na, Nb) if gram else (Na,), dtype=torch.float32,
@@ -105,7 +132,8 @@ def dtw_banded_cuda(A: torch.Tensor, B: torch.Tensor, radius: int, *,
         return out
     lib = _build.library("dtw_wavefront")
     rc = lib.dtw_banded(A.data_ptr(), B.data_ptr(), Na, Nb, int(gram), T, d,
-                        int(radius), out.data_ptr(), _stream_ptr(dev))
+                        int(radius), geo["pairs_per_block"] if geo["wide"]
+                        else 0, out.data_ptr(), _stream_ptr(dev))
     _build.LAUNCHES["dtw_banded"] += 1
     _build.check(rc, "dtw_banded")
     return out

@@ -45,7 +45,7 @@ import torch
 from repro_torch.core.occupancy import BlockSparsePaths
 from . import _build
 from .spdtw_block import (INF, _check_operand, _stream_ptr,
-                          result_tile_step, tile_sweep)
+                          result_tile_step, tile_geometry, tile_sweep)
 
 
 def _pair_batch(xa: torch.Tensor, yb: torch.Tensor):
@@ -354,14 +354,15 @@ def gram_spdtw_cuda(Ap: torch.Tensor, Bp: torch.Tensor,
     out = torch.empty((Na, Nb), dtype=torch.float32, device=dev)
     if Na * Nb == 0:
         return out
+    geo = tile_geometry(bsp.tile, d, Tp)
     lib = _build.library("spdtw_tiles")
     rc = lib.spdtw_tiles_gram(
         Ap.data_ptr(), Bp.data_ptr(), Na, Nb, d, Tp, meta.data_ptr(),
         n_steps, blocks.data_ptr(), bsp.tile,
         None if thr is None else thr.data_ptr(),
         None if alive0 is None else alive0.data_ptr(),
-        int(thr is not None), g_out, r, int(prefix), out.data_ptr(),
-        _stream_ptr(dev))
+        int(thr is not None), g_out, r, int(prefix), geo["threads"],
+        out.data_ptr(), _stream_ptr(dev))
     _build.LAUNCHES["spdtw_tiles_gram"] += 1
     _build.check(rc, "spdtw_tiles_gram")
     return out
@@ -469,7 +470,7 @@ def gram_log_krdtw_block(A: torch.Tensor, B: torch.Tensor, nu: float,
     if support is not None:
         sup = support.cpu() if isinstance(support, torch.Tensor) else support
         bits = pack_diagonal_mask(mask_to_diagonal_major(np.asarray(sup)), T,
-                                  A.device)
+                                  "cpu")
     return krdtw_cuda(A.to(torch.float32).contiguous(),
                       B.to(device=A.device, dtype=torch.float32).contiguous(),
                       nu, radius=radius, mask_bits=bits, gram=True)

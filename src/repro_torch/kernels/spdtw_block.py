@@ -116,6 +116,40 @@ def result_tile_step(meta: np.ndarray, S: int, T_orig: int) -> int:
     return int(hit[0]) if len(hit) else -1
 
 
+SMEM_MAX = 232448
+# tile edges the one-thread-per-pair route takes; threads per block it tries
+THREAD_TILES = (8, 16, 32)
+THREAD_BLOCKS = (128, 64, 32)
+
+
+def tile_geometry(S: int, d: int, Tp: int) -> dict:
+    """How K1 / K2 sweep tiles of edge S over a Tp-long padded grid with d
+    channels. ``route`` "thread": one thread per pair, ``threads`` per
+    block (the largest of 128, 64, 32 whose shared memory fits half the
+    card's, else the whole); ``y_in_registers`` where S * d <= 64 and d <=
+    3. ``route`` "lanes" (S > 32, or edges too long for the thread route):
+    min(S, 32) lanes per pair, 4 warps per block. ``pairs_per_block`` and
+    ``smem_bytes`` of a block. Mirrors ``csrc/spdtw_tiles.cu``."""
+    if S in THREAD_TILES:
+        yreg = d <= 3 and S * d <= 64
+        for limit in (SMEM_MAX // 2, SMEM_MAX):
+            for nt in THREAD_BLOCKS:
+                floats = nt * (Tp + S) + S * S + (0 if yreg else nt * d * S)
+                if floats * 4 <= limit:
+                    return {"route": "thread", "threads": nt,
+                            "pairs_per_block": nt, "y_in_registers": yreg,
+                            "smem_bytes": floats * 4}
+    G = min(S, 32)
+    C = S // G
+    ppb = 4 * (32 // G)
+    smem = ppb * (Tp + S + (2 * S if C > 1 else 0)) * 4
+    if smem > SMEM_MAX:
+        raise ValueError(f"tile {S} over {Tp} padded steps needs {smem} "
+                         f"bytes of shared memory, more than {SMEM_MAX}")
+    return {"route": "lanes", "threads": 0, "pairs_per_block": ppb,
+            "y_in_registers": False, "smem_bytes": smem}
+
+
 def _check_operand(name: str, t: torch.Tensor, shape: tuple,
                    device: torch.device, dtype=torch.float32) -> None:
     if t.device != device:
@@ -154,12 +188,13 @@ def spdtw_paired_cuda(xp: torch.Tensor, yp: torch.Tensor,
     out = torch.empty((P,), dtype=torch.float32, device=dev)
     if P == 0:
         return out
+    geo = tile_geometry(bsp.tile, d, Tp)
     lib = _build.library("spdtw_tiles")
     rc = lib.spdtw_tiles_paired(
         xp.data_ptr(), yp.data_ptr(), P, d, Tp, meta.data_ptr(),
         int(meta.shape[0]), blocks.data_ptr(), bsp.tile,
         None if thr is None else thr.data_ptr(), int(thr is not None),
-        g_out, r, out.data_ptr(), _stream_ptr(dev))
+        g_out, r, geo["threads"], out.data_ptr(), _stream_ptr(dev))
     _build.LAUNCHES["spdtw_tiles_paired"] += 1
     _build.check(rc, "spdtw_tiles_paired")
     return out

@@ -210,7 +210,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,d,T", [(8, 1, 40), (16, 1, 70), (16, 3, 70),
+@pytest.mark.parametrize("S,d,T", [(8, 1, 40), (8, 3, 40), (16, 1, 70),
+                                   (16, 3, 70), (32, 1, 150), (32, 3, 150),
                                    (128, 1, 150), (128, 3, 150)])
 def test_cuda_kernels_match_plain_versions(cuda_device, S, d, T):
     rng = np.random.default_rng(S + d)

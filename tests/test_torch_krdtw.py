@@ -291,35 +291,66 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _narrow_support(T):
+    """|i - j| <= 3: at most 4 positions per diagonal, so the narrow sweep
+    packs 8 pairs per warp."""
+    i = np.arange(T)
+    return np.abs(i[:, None] - i[None, :]) <= 3
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [24, 100, 300])
+@pytest.mark.parametrize("T", [24, 100, 300, 600, 1024])
 def test_cuda_k3_k4_match_plain_and_each_other(cuda_device, T):
     x, y = (torch.as_tensor(a, device=cuda_device) for a in _pairs(T, 9, T))
-    sup = _support(T, T)
+    domains = ({}, {"radius": 5}, {"support": _support(T, T)},
+               {"support": _narrow_support(T)})
     before = _build.launch_counts()
     for nu in (0.1, 2.0):
-        for kw in ({}, {"radius": 5}, {"support": sup}):
+        for kw in domains:
             G = t_gb.gram_log_krdtw_block(x[:4], y, nu, **kw)
             Gp = t_gb.gram_log_krdtw_plain(x[:4], y, nu, **kw)
-            np.testing.assert_allclose(G.cpu().numpy(), Gp.cpu().numpy(),
-                                       **KTOL)
-            md = t_k4.mask_to_diagonal_major(sup) if "support" in kw \
-                else None
+            assert torch.equal(G, Gp)
+            md = t_k4.mask_to_diagonal_major(kw["support"]) \
+                if "support" in kw else None
             P = t_k4.wavefront_log_krdtw(x[:4], y[:4], nu,
                                          radius=kw.get("radius"),
                                          mask_diag=md)
             assert torch.equal(P, torch.diagonal(G[:, :4]))
+            assert torch.equal(P, t_k4.wavefront_log_krdtw_plain(
+                x[:4], y[:4], nu, radius=kw.get("radius"), mask_diag=md))
     after = _build.launch_counts()
-    assert after["krdtw_gram"] == before["krdtw_gram"] + 6
-    assert after["krdtw_paired"] == before["krdtw_paired"] + 6
+    assert after["krdtw_gram"] == before["krdtw_gram"] + 8
+    assert after["krdtw_paired"] == before["krdtw_paired"] + 8
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,d", [(24, 1), (128, 1), (100, 3)])
-def test_cuda_k5_k6_equal_plain(cuda_device, T, d):
+def test_cuda_k3_k4_at_the_longest_ucr_length(cuda_device):
+    """T = 2709 (UCR HandOutlines), a few pairs: the full grid (wide
+    sweep, no length limit), a corridor and a narrow support."""
+    T = 2709
+    x, y = (torch.as_tensor(a, device=cuda_device) for a in _pairs(T, 3, T))
+    for kw in ({}, {"radius": 6}, {"support": _narrow_support(T)}):
+        G = t_gb.gram_log_krdtw_block(x[:2], y, 0.5, **kw)
+        assert torch.equal(G, t_gb.gram_log_krdtw_plain(x[:2], y, 0.5, **kw))
+        md = t_k4.mask_to_diagonal_major(kw["support"]) \
+            if "support" in kw else None
+        P = t_k4.wavefront_log_krdtw(x[:2], y[:2], 0.5,
+                                     radius=kw.get("radius"), mask_diag=md)
+        assert torch.equal(P, torch.diagonal(G[:, :2]))
+        assert bool(torch.isfinite(G).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,radii", [
+    (24, 1, (None, 0, 3, 13, 26)), (128, 1, (None, 0, 3, 13, 26)),
+    (100, 3, (None, 0, 3, 13, 26)),
+    # past the register layouts: K5's shared-memory diagonals (T > 512)
+    # and K6's 409-cell strip (2w + 1 > 256)
+    (1024, 1, (None, 204))])
+def test_cuda_k5_k6_equal_plain(cuda_device, T, d, radii):
     x, y = (torch.as_tensor(a, device=cuda_device)
             for a in _pairs(T + d, 8, T, d))
-    for r in (None, 0, 3, 13, 26):
+    for r in radii:
         assert torch.equal(t_k5.wavefront_dtw(x, y, radius=r),
                            t_k5.wavefront_dtw_plain(x, y, radius=r))
         if r is None:
