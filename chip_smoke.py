@@ -29,10 +29,12 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
      ``soft_spdtw_bwd_block`` (values, stash, gx / gy / gw, E blocks) at
      (S, d, T) in {(8, 1, 40), (16, 1, 70), (16, 3, 70)}, Gram and paired
      mode, on a random support, a masked corner cell, a ragged T_orig and
-     an inactive corner tile.
-   K1-K4 and K6 must equal their plain versions bit for bit; the limit
-   is rel 1e-6 for K5, rel 1e-5 for K7, K8, and rtol 1e-4 / atol 1e-5 for
-   K9's gradients and E blocks (f32 sums in another order).
+     an inactive corner tile, under each launch template ("pairs",
+     "tiles") forced and the wrappers' own choice.
+   K1-K4, K6, K7 and K8 must equal their plain versions bit for bit (K7
+   = K8, and K9's two templates give equal gx, gy and E blocks); the
+   limit is rel 1e-6 for K5, and rtol 1e-4 / atol 1e-5 for K9's gradients
+   and E blocks (f32 sums in another order).
 3. The SP-DTW main path at the UCR TwoPatterns shape (1000 train / 4000
    test, T = 128, 4 classes): ``fit`` learns the support from all
    499,500 train pairs on the card, ``engine.gram`` runs K1 over
@@ -58,16 +60,20 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    cascade and the Gram argmin, bit for bit), nearest-centroid and 1-NN
    classification, the 4000 x 1000 soft Gram without a gradient (K7; every
    value at most the hard Gram's, 1e-3 relative slack) and the 1000 x 1000
-   train soft Gram with a gradient (K8, K9) on the 10 %-share support, gA
-   held against the plain backward on 64 rows, gw zero outside the
-   support.
+   train soft Gram with a gradient (K8, K9) on the 10 %-share support, K8
+   equal to the plain forward and gA held against the plain backward on
+   64 rows, gw zero outside the support; K8 / K9 in paired mode at the
+   fit's shapes under both templates, with their wrappers' and bare
+   launches' times.
    For each path the launch counters are set to 0 just before and read
    just after, and each of its kernels must have launched. Then a
    torch.profiler pass gives the device time by kernel and the device's
    idle share for calls of both paths.
 4. Timing at the paths' shapes: each kernel against its plain version,
-   with its bound; one JSON line ``{"kernels": ...}`` of all nine
-   kernels.
+   with its bound (K8 / K9 as their bare launches' device time, with the
+   template each launch takes); both K8 / K9 templates at the pair counts
+   on either side of ``PAIRS_MIN_FWD`` / ``PAIRS_MIN_BWD`` (a record, not
+   a gate); one JSON line ``{"kernels": ...}`` of all nine kernels.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
@@ -130,12 +136,14 @@ SLICE2 = ("spdtw_tiles_gram", "krdtw_gram", "krdtw_paired", "dtw_wavefront",
           "dtw_banded")
 # K3 / K4 against their plain versions (exp / log on both sides)
 KREL_LIMIT = 1e-5
-# K7 / K8 values and stash against the plain versions (rel); K9's
-# gradients and E blocks (f32 sums in another order): |got - want| <=
+# the soft values' limit against a plain version in another association
+# (rel); K9's gradients and E blocks (f32 sums in another order): |got - want| <=
 # GRAD_RTOL |want| + GRAD_ATOL
 SOFT_REL_LIMIT = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 SOFT_GAMMA = 0.1
+# the launch templates of K7-K9 (``soft_block.soft_geometry``)
+TEMPLATES = ("pairs", "tiles")
 
 
 def log(*a):
@@ -181,6 +189,26 @@ def cuda_ms(fn, reps: int = 1, warmup: int = 0):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times), out
+
+
+def device_ms(fn, reps: int = 5):
+    """Median device time in ms of the work ``fn()`` enqueues (CUDA
+    events), with the host's own time hidden: each run is enqueued behind
+    a ~1 ms spin of the card, so the start event fires when the spin ends
+    and the launches are already queued. Returns (ms, last result)."""
+    import torch
+    out, times = None, []
+    for _ in range(reps + 1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times[1:]), out
 
 
 # ---------------------------------------------------------------------------
@@ -425,15 +453,75 @@ def _soft_diff(got, want, rtol, atol):
         float((d - rtol * aw - atol).max())
 
 
+def _fwd_templates(A, B, bsp, gamma, T_orig, gram):
+    """K7 and K8 under each template forced: {template: (K7 values, K8
+    values, K8 stash)}, flat (P,) values."""
+    from repro_torch.kernels import soft_block as sb
+    from repro_torch.kernels.backends import series_dim, to_tile_major
+    S = bsp.tile
+    g_out = sb.result_tile_step(bsp.plan(), S, T_orig)
+    kw = dict(gram=gram, d=series_dim(A), g_out=g_out, r=(T_orig - 1) % S,
+              gamma=gamma)
+    Ap, Bp = to_tile_major(A, S, bsp.T), to_tile_major(B, S, bsp.T)
+    out = {}
+    for tmpl in TEMPLATES:
+        v7, _ = sb.soft_fwd_cuda(Ap, Bp, bsp, template=tmpl, **kw)
+        v8, L8 = sb.soft_fwd_cuda(Ap, Bp, bsp, stash=True, template=tmpl,
+                                  **kw)
+        out[tmpl] = (v7, v8, L8)
+    return out
+
+
+def _bwd_templates(A, B, bsp, gamma, T_orig, gram, stash, gbar):
+    """K9 under each template forced on one stash: {template: (gx, gy, gw,
+    E blocks)}."""
+    from repro_torch.kernels import soft_block as sb
+    from repro_torch.kernels.backends import series_dim, to_tile_major
+    S = bsp.tile
+    g_out = sb.result_tile_step(bsp.plan(), S, T_orig)
+    Ap, Bp = to_tile_major(A, S, bsp.T), to_tile_major(B, S, bsp.T)
+    return {tmpl: sb.soft_bwd_cuda(
+        Ap, Bp, bsp, stash, gbar.reshape(-1).contiguous(), gram=gram,
+        d=series_dim(A), g_out=g_out, r=(T_orig - 1) % S, gamma=gamma,
+        eblocks=True, template=tmpl) for tmpl in TEMPLATES}
+
+
+def _template_gates(label, fwd, plain_v, plain_L, bwd, fails):
+    """K7 = K8 = the plain version bit for bit under every template
+    (``fwd`` from ``_fwd_templates``), and K9's templates (``bwd`` from
+    ``_bwd_templates``) with equal gx, gy and E blocks and gw within
+    GRAD_RTOL. Appends what fails to ``fails``."""
+    import torch
+    for tmpl, (v7, v8, L8) in fwd.items():
+        if not torch.equal(v7, plain_v.reshape(-1)):
+            fails.append(f"K7 ({tmpl}) != plain, {label}")
+        if not torch.equal(v8, v7):
+            fails.append(f"K8 ({tmpl}) != K7, {label}")
+        if not torch.equal(L8, plain_L):
+            fails.append(f"K8 ({tmpl}) stash != plain, {label}")
+    (gx0, gy0, gw0, E0), (gx1, gy1, gw1, E1) = bwd["pairs"], bwd["tiles"]
+    if not (torch.equal(gx0, gx1) and torch.equal(gy0, gy1)
+            and torch.equal(E0, E1)):
+        fails.append(f"K9 templates differ in gx / gy / E, {label}")
+    _, rel, exc = _soft_diff(gw1, gw0, GRAD_RTOL,
+                             GRAD_RTOL * float(gw0.abs().max()))
+    if exc > 0:
+        fails.append(f"K9 templates' gw beyond rtol {GRAD_RTOL}, {label}")
+
+
 def _check_soft():
     """K7 / K8 / K9 against their plain versions at (S, d, T) in {(8, 1,
     40), (16, 1, 70), (16, 3, 70)}, in Gram and paired mode, on a random
     support, on one whose corner cell is masked (the result tile active
     but its cell unreachable), at ragged T_orig = T - 3, and on one whose
     corner tile is inactive (no launch: +INF values, zero gradients).
-    Values and stash at rel SOFT_REL_LIMIT, K7 = K8 bit for bit; K9's
-    gradients and E blocks at GRAD_RTOL / GRAD_ATOL. Every comparison is
-    printed before the first failure is raised."""
+    K7 / K8 values and stash equal the plain version bit for bit under
+    both templates and the entries' own choice, K7 = K8, and paired = the
+    Gram diagonal. K9 fed the kernel's stash against the plain reverse
+    sweep fed the plain stash (the same bits) at GRAD_RTOL / GRAD_ATOL;
+    K9's two templates give equal gx, gy and E blocks, gw within
+    GRAD_RTOL. Every comparison is printed before the first failure is
+    raised."""
     import numpy as np
     import torch
     from repro_torch.core.occupancy import block_sparsify
@@ -442,14 +530,15 @@ def _check_soft():
     rng = np.random.default_rng(2)
     worst = {k: [0.0, 0.0] for k in SOFT}
     fails = []
-    bits = {"K7 vs plain": True, "K8 vs plain": True}
 
-    def record(kernel, what, got, want, rtol, atol=0.0):
+    def record(kernel, what, got, want, rtol, atol=0.0, exact=False):
         ab, rel, exc = _soft_diff(got, want, rtol, atol)
         worst[kernel][0] = max(worst[kernel][0], ab)
         worst[kernel][1] = max(worst[kernel][1], rel)
         log(f"  {what}: max abs {ab:.3g} max rel {rel:.3g}")
-        if exc > 0:
+        if exact and not torch.equal(got, want):
+            fails.append(f"{what}: not bit for bit")
+        elif exc > 0:
             fails.append(f"{what}: beyond rtol {rtol} atol {atol}")
 
     gamma = SOFT_GAMMA
@@ -469,51 +558,57 @@ def _check_soft():
             B = torch.as_tensor(rng.normal(size=shape(9)).astype(np.float32),
                                 device=dev)
             lab = f"S={S} d={d} T={T} T_orig={T_orig} {sup}"
+            Gs, Ls = sb.gram_soft_fwd_stash(A, B, bsp, gamma)
+            Ps, Qs = sb.soft_spdtw_fwd_stash(A, B[:6], bsp, gamma)
             G7 = sb.gram_soft_spdtw_block(A, B, bsp, gamma)
-            Gp = sb.gram_soft_spdtw_scan(A, B, bsp, gamma)
-            record("soft_tiles_fwd", f"K7 gram {lab}", G7, Gp,
-                   SOFT_REL_LIMIT)
-            bits["K7 vs plain"] &= torch.equal(G7, Gp)
+            record("soft_tiles_fwd", f"K7 gram {lab}", G7, Gs, 0.0,
+                   exact=True)
             P7 = sb.soft_spdtw_paired_block(A, B[:6], bsp, gamma)
-            Pp = sb.soft_spdtw_paired_scan(A, B[:6], bsp, gamma)
-            record("soft_tiles_fwd", f"K7 paired {lab}", P7, Pp,
-                   SOFT_REL_LIMIT)
+            record("soft_tiles_fwd", f"K7 paired {lab}", P7, Ps, 0.0,
+                   exact=True)
             G8, L8 = sb.soft_fwd_stash_block(A, B, bsp, gamma, gram=True)
-            G8p, L8p = sb.gram_soft_fwd_stash(A, B, bsp, gamma)
             if not torch.equal(G8, G7):
                 fails.append(f"K8 != K7 bit for bit, gram {lab}")
-            record("soft_tiles_stash", f"K8 gram values {lab}", G8, G8p,
-                   SOFT_REL_LIMIT)
-            record("soft_tiles_stash", f"K8 gram stash {lab}", L8, L8p,
-                   SOFT_REL_LIMIT)
-            bits["K8 vs plain"] &= torch.equal(L8, L8p)
+            record("soft_tiles_stash", f"K8 gram stash {lab}", L8, Ls, 0.0,
+                   exact=True)
             P8, Q8 = sb.soft_fwd_stash_block(A, B[:6], bsp, gamma,
                                              gram=False)
-            P8p, Q8p = sb.soft_spdtw_fwd_stash(A, B[:6], bsp, gamma)
             if not torch.equal(P8, P7):
                 fails.append(f"K8 != K7 bit for bit, paired {lab}")
-            record("soft_tiles_stash", f"K8 paired stash {lab}", Q8, Q8p,
-                   SOFT_REL_LIMIT)
+            if not torch.equal(P7, torch.diagonal(G7[:, :6])):
+                fails.append(f"paired != Gram diagonal, {lab}")
+            record("soft_tiles_stash", f"K8 paired stash {lab}", Q8, Qs,
+                   0.0, exact=True)
             # K9 with the kernel's stash against the plain reverse scan
-            # with the plain stash
+            # with the plain stash (the same bits)
             gbar = torch.as_tensor(rng.normal(size=(6, 9)).astype(
-                np.float32), device=dev) * (G8p < 1e29)
+                np.float32), device=dev) * (Gs < 1e29)
             gk = sb.soft_bwd_block(A, B, bsp, gamma, L8, gbar, gram=True)
-            gp = sb.gram_soft_bwd_scan(A, B, bsp, gamma, L8p, gbar)
+            gp = sb.gram_soft_bwd_scan(A, B, bsp, gamma, Ls, gbar)
             for name, a, b in zip(("gA", "gB", "gw"), gk, gp):
                 record("soft_tiles_bwd", f"K9 gram {name} {lab}", a, b,
                        GRAD_RTOL, GRAD_ATOL)
             pbar = gbar[:, 0].contiguous()
             gk = sb.soft_bwd_block(A, B[:6], bsp, gamma, Q8, pbar,
                                    gram=False)
-            gp = sb.soft_spdtw_bwd_block(A, B[:6], bsp, gamma, Q8p, pbar)
+            gp = sb.soft_spdtw_bwd_block(A, B[:6], bsp, gamma, Qs, pbar)
             for name, a, b in zip(("gx", "gy", "gw"), gk, gp):
                 record("soft_tiles_bwd", f"K9 paired {name} {lab}", a, b,
                        GRAD_RTOL, GRAD_ATOL)
             record("soft_tiles_bwd", f"K9 E blocks {lab}",
                    _kernel_eblocks(A, B[:6], bsp, gamma, Q8, T_orig),
-                   _plain_eblocks(A, B[:6], bsp, gamma, Q8p, T_orig),
+                   _plain_eblocks(A, B[:6], bsp, gamma, Qs, T_orig),
                    GRAD_RTOL, GRAD_ATOL)
+            # both templates forced, Gram and paired mode
+            if sb.result_tile_step(bsp.plan(), S, T_orig) >= 0:
+                for gram, Bx, pv, pL, gb_ in ((True, B, Gs, Ls, gbar),
+                                              (False, B[:6], Ps, Qs, pbar)):
+                    _template_gates(
+                        f"{'gram' if gram else 'paired'} {lab}",
+                        _fwd_templates(A, Bx, bsp, gamma, T_orig, gram),
+                        pv, pL,
+                        _bwd_templates(A, Bx, bsp, gamma, T_orig, gram, pL,
+                                       gb_), fails)
         # the corner tile inactive: no launch, +INF and zero gradients
         w_off = w_rand.copy()
         w_off[-S:, -S:] = 0.0
@@ -527,7 +622,8 @@ def _check_soft():
             fails.append(f"corner tile inactive S={S} d={d}: values "
                          f"{v.tolist()}")
         log(f"  S={S} d={d} corner tile inactive: +INF, zero gradients")
-    log(f"  bit identity with the plain versions on every case: {bits}")
+    log(f"  K7 / K8 == plain bit for bit under both templates, K9 "
+        f"templates' gx / gy / E equal: {not fails}")
     require(not fails, "; ".join(fails))
     return worst
 
@@ -900,12 +996,11 @@ def phase_centroid_path(main):
     require(bool(torch.isfinite(A.grad).all()), "gA finite")
     n = N_GRAD_CHECK
     v_p, st_p = sb.gram_soft_fwd_stash(Xtr[:n], Xtr, bsp, gamma)
-    ab, rel, exc = _soft_diff(Gv.detach()[:n], v_p, SOFT_REL_LIMIT, 0.0)
-    require(exc <= 0, "K8 values disagree with the plain forward")
-    log(f"  K8 values [:{n}] vs plain forward: max abs {ab:.3g} max rel "
-        f"{rel:.3g} (bit for bit: {torch.equal(v_p, Gv.detach()[:n])})")
-    gA_p, _, _ = sb.gram_soft_bwd_scan(Xtr[:n], Xtr, bsp, gamma, st_p,
-                                       gbar[:n] * (v_p < 1e29))
+    require(torch.equal(v_p, Gv.detach()[:n]),
+            "K8 values != the plain forward, not bit for bit")
+    log(f"  K8 values [:{n}] == plain forward, bit for bit")
+    gb_n = gbar[:n] * (v_p < 1e29)
+    gA_p, _, _ = sb.gram_soft_bwd_scan(Xtr[:n], Xtr, bsp, gamma, st_p, gb_n)
     ab, rel, exc = _soft_diff(A.grad[:n], gA_p, GRAD_RTOL,
                               GRAD_RTOL * float(gA_p.abs().max()))
     log(f"  K9 gA[:{n}] vs plain backward on {n} x {N_TRAIN} pairs: max abs "
@@ -926,38 +1021,71 @@ def phase_centroid_path(main):
             "grad_err": ab, "paired": paired}
 
 
+def _bwd_bare(z, X, bsp, gamma, stash, gbar, template):
+    """Device time (ms) of K9's bare launch into buffers allocated and
+    zeroed beforehand, and the template the launch took."""
+    from repro_torch.kernels import soft_block as sb
+    from repro_torch.kernels.backends import series_dim, to_tile_major
+    S = bsp.tile
+    T = z.shape[1]
+    kw = dict(gram=False, d=series_dim(z), r=(T - 1) % S, gamma=gamma,
+              g_out=sb.result_tile_step(bsp.plan(), S, T), template=template)
+    zp, Xp = to_tile_major(z, S, bsp.T), to_tile_major(X, S, bsp.T)
+    gb = gbar.reshape(-1).contiguous()
+    out = sb.soft_bwd_launch(zp, Xp, bsp, stash, gb, **kw)
+    ms, _ = device_ms(lambda: sb.soft_bwd_launch(zp, Xp, bsp, stash, gb,
+                                                 out=out, **kw))
+    geo = sb.soft_geometry(S, kw["d"], bsp.T, X.shape[0], _width(bsp, T),
+                           backward=True, template=template)
+    return ms, geo["template"]
+
+
+def _width(bsp, T):
+    """Tiles on the widest tile anti-diagonal of ``bsp``'s walked plan."""
+    import numpy as np
+    from repro_torch.kernels import soft_block as sb
+    g_out = sb.result_tile_step(bsp.plan(), bsp.tile, T)
+    _, dptr = sb.tile_diagonals(bsp.plan()[:g_out + 1])
+    return int(np.diff(dptr).max())
+
+
 def _check_paired_main(eng, label, gamma):
     """K8 / K9 in paired mode at the shapes ``fit_centroids`` gives them:
     the members of one class against their Euclidean mean (the inputs of
     the first Adam step) on the engine's plan, with the barycenter loss's
-    cotangent 1 / B per pair. Values and stash against
-    ``soft_spdtw_fwd_stash`` at rel SOFT_REL_LIMIT; gx / gy / gw against
-    ``soft_spdtw_bwd_block`` at GRAD_RTOL / GRAD_ATOL, both backwards fed
-    the kernel's stash. Returns each kernel's max abs difference and its
-    time against the plain version's (ms). Run after the path's launches
-    were read, so these launches count nowhere."""
+    cotangent 1 / B per pair. K8's values and stash equal the plain
+    version (``soft_spdtw_fwd_stash``) bit for bit under both templates;
+    K9 fed the kernel's stash against ``soft_spdtw_bwd_block``
+    fed the same at GRAD_RTOL / GRAD_ATOL, and K9's two templates with
+    equal gx, gy and E blocks. Times each kernel's wrapper (what a step of
+    the fit calls: layout, allocation, the launch and, for K9, the gw sum
+    and scatter) and its bare launch under each template (device time).
+    Returns each kernel's max abs difference and its times. Run after the
+    path's launches were read, so these launches count nowhere."""
     import numpy as np
     import torch
     from repro_torch.kernels import soft_block as sb
+    from repro_torch.kernels.backends import to_tile_major
     Xtr = eng.corpus
     idx = np.nonzero(np.asarray(eng.labels) == label)[0]
     X = Xtr[torch.as_tensor(idx, device=Xtr.device)]
-    B = X.shape[0]
+    B, T = X.shape[0], X.shape[1]
     z = X.mean(dim=0).expand(X.shape).contiguous()
     bsp = sb.soft_plan(eng.bsp)
+    S = bsp.tile
     ms8, (v8, L8) = cuda_ms(lambda: sb.soft_fwd_stash_block(
         z, X, bsp, gamma, gram=False), reps=3, warmup=1)
     pms8, (vp, Lp) = cuda_ms(lambda: sb.soft_spdtw_fwd_stash(z, X, bsp,
                                                               gamma))
     fails, err = [], {}
     for what, got, want in (("values", v8, vp), ("stash", L8, Lp)):
-        ab, rel, exc = _soft_diff(got, want, SOFT_REL_LIMIT, 0.0)
+        ab, rel, _ = _soft_diff(got, want, 0.0, 0.0)
         err["soft_tiles_stash"] = max(err.get("soft_tiles_stash", 0.0), ab)
         log(f"  K8 paired {what}, class {label} ({B} pairs, "
             f"{L8.shape[0]} walked tiles): max abs {ab:.3g} max rel "
-            f"{rel:.3g} (bit for bit: {torch.equal(got, want)})")
-        if exc > 0:
-            fails.append(f"K8 paired {what} beyond rel {SOFT_REL_LIMIT}")
+            f"{rel:.3g}")
+        if not torch.equal(got, want):
+            fails.append(f"K8 paired {what} != plain, not bit for bit")
     gbar = torch.full((B,), 1.0 / B, device=X.device) * (vp < 1e29)
     ms9, gk = cuda_ms(lambda: sb.soft_bwd_block(z, X, bsp, gamma, L8, gbar,
                                                 gram=False), reps=3,
@@ -971,20 +1099,40 @@ def _check_paired_main(eng, label, gamma):
         if exc > 0:
             fails.append(f"K9 paired {name} beyond rtol {GRAD_RTOL} atol "
                          f"{GRAD_ATOL}")
-    K, S, Tp = int(L8.shape[0]), bsp.tile, bsp.T
+    _template_gates(f"paired, class {label}",
+                    _fwd_templates(z, X, bsp, gamma, T, False), vp, Lp,
+                    _bwd_templates(z, X, bsp, gamma, T, False, L8, gbar),
+                    fails)
+    # bare launches under each template (device time)
+    g_out = sb.result_tile_step(bsp.plan(), S, T)
+    zp, Xp = to_tile_major(z, S, bsp.T), to_tile_major(X, S, bsp.T)
+    bare = {}
+    for tmpl in ("auto",) + TEMPLATES:
+        b8, _ = device_ms(lambda: sb.soft_fwd_cuda(
+            zp, Xp, bsp, gram=False, d=1, g_out=g_out, r=(T - 1) % S,
+            gamma=gamma, stash=True, template=tmpl))
+        b9, t9 = _bwd_bare(z, X, bsp, gamma, L8, gbar, tmpl)
+        bare[tmpl] = (b8, b9, t9)
+    K, Tp = int(L8.shape[0]), bsp.T
     cells, stash_bytes = B * K * S * S, B * K * S * S * 4
     b8 = _bound_cells(cells, _soft_fwd_flops(1), SOFT_FWD_SFU,
                       2 * B * Tp * 4, B * 4 + stash_bytes)
     b9 = _bound_cells(cells, _soft_bwd_flops(1), SOFT_BWD_SFU,
                       2 * B * Tp * 4 + stash_bytes + B * 4,
                       2 * B * Tp * 4 + Tp * Tp * 4)
-    log(f"  paired mode per Adam step of class {label}: K8 {ms8:.3f} ms "
-        f"(plain {pms8:.1f} ms, bound {b8[0]:.4f} ms by {b8[1]}), K9 "
-        f"{ms9:.3f} ms (plain {pms9:.1f} ms, bound {b9[0]:.4f} ms by "
-        f"{b9[1]})")
+    n_diag = len(sb.tile_diagonals(bsp.plan()[:g_out + 1])[1]) - 1
+    log(f"  paired mode per Adam step of class {label} ({B} pairs, {K} "
+        f"tiles on {n_diag} tile diagonals, widest {_width(bsp, T)}): "
+        f"K8 wrapper {ms8:.3f} ms (plain {pms8:.1f} ms, bound {b8[0]:.4f} ms "
+        f"by {b8[1]}), K9 wrapper {ms9:.3f} ms (plain {pms9:.1f} ms, bound "
+        f"{b9[0]:.4f} ms by {b9[1]})")
+    for tmpl, (t8, t9, chosen) in bare.items():
+        log(f"  bare launch, template {tmpl} (K9 took {chosen}): K8 "
+            f"{t8:.4f} ms, K9 {t9:.4f} ms")
     require(not fails, "; ".join(fails))
     return {"err": err, "ms": {"soft_tiles_stash": (ms8, pms8, b8),
-                               "soft_tiles_bwd": (ms9, pms9, b9)}}
+                               "soft_tiles_bwd": (ms9, pms9, b9)},
+            "bare": bare}
 
 
 # ---------------------------------------------------------------------------
@@ -1182,7 +1330,11 @@ def phase_timing_soft(main, cp):
     """K7 over the 4000 x 1000 soft Gram (theta = 2 plan) and K8 / K9 over
     the 1000 x 1000 train Gram with a gradient (10 %-share plan), against
     their plain versions on slices (plain K7 on 16 x 1000 pairs, plain
-    K8 / K9 on 64 x 1000), with their bounds."""
+    K8 / K9 on 64 x 1000), with their bounds. K8 / K9 times are the bare
+    launch's device time, their wrappers' beside them. Then K8 / K9 in
+    paired mode on the main plan under both templates on either side of
+    ``PAIRS_MIN_FWD`` / ``PAIRS_MIN_BWD``."""
+    import numpy as np
     import torch
     from repro_torch.kernels import soft_block as sb
     from repro_torch.kernels.backends import to_tile_major
@@ -1203,62 +1355,126 @@ def phase_timing_soft(main, cp):
     # K7: the soft Gram of phase 3c
     bsp = eng.bsp
     g_out = sb.result_tile_step(bsp.plan(), S, T)
+    Na, Nb = Xte.shape[0], Xtr.shape[0]
+    geo = sb.soft_geometry(S, 1, bsp.T, Na * Nb, _width(bsp, T))
     ms, G7 = cuda_ms(lambda: sb.gram_soft_spdtw_block(Xte, Xtr, bsp, gamma))
     require(torch.equal(G7, cp["Gs"]), "K7 not deterministic across runs")
     n7 = 16
     pms, Gp = cuda_ms(lambda: sb.gram_soft_spdtw_scan(Xte[:n7], Xtr, bsp,
                                                       gamma, block_a=n7))
-    ab, rel = diff(G7[:n7], Gp)
-    require(rel <= SOFT_REL_LIMIT, f"K7 at main shapes: rel {rel}")
-    Na, Nb = Xte.shape[0], Xtr.shape[0]
+    require(torch.equal(G7[:n7], Gp), "K7 != plain at main shapes")
+    ab, _ = diff(G7[:n7], Gp)
     cells = Na * Nb * (g_out + 1) * S * S
     row("soft_tiles_fwd", ms, pms, ab,
         _bound_cells(cells, _soft_fwd_flops(1), SOFT_FWD_SFU,
                      (Na + Nb) * T * 4, Na * Nb * 4),
-        f"{Na}x{Nb} ({g_out + 1} walked tiles; plain on {n7}x{Nb})")
+        f"{Na}x{Nb} ({g_out + 1} walked tiles, template {geo['template']}, "
+        f"{geo['threads']} threads; plain on {n7}x{Nb})")
 
     # K8 / K9: the train x train Gram with a gradient of phase 3c
     gb_ = cp["geng"].bsp
     g_out = sb.result_tile_step(gb_.plan(), S, T)
     K = g_out + 1
     r = (T - 1) % S
+    wid = _width(gb_, T)
     Xp = to_tile_major(Xtr, S, gb_.T)
-    ms8, (v8, L8) = cuda_ms(lambda: sb.soft_fwd_cuda(
-        Xp, Xp, gb_, gram=True, d=1, g_out=g_out, r=r, gamma=gamma,
-        stash=True))
+    kw = dict(gram=True, d=1, g_out=g_out, r=r, gamma=gamma)
+    ms8, (v8, L8) = device_ms(lambda: sb.soft_fwd_cuda(Xp, Xp, gb_,
+                                                       stash=True, **kw))
+    wms8, _ = cuda_ms(lambda: sb.soft_fwd_stash_block(Xtr, Xtr, gb_, gamma,
+                                                      gram=True))
     n = N_GRAD_CHECK
     pms8, (vp, Lp) = cuda_ms(lambda: sb.gram_soft_fwd_stash(
         Xtr[:n], Xtr, gb_, gamma, block_a=n))
-    ab8, rel8 = diff(L8[:, :n * Nb], Lp)
-    require(rel8 <= SOFT_REL_LIMIT, f"K8 stash at main shapes: rel {rel8}")
+    require(torch.equal(L8[:, :n * Nb], Lp),
+            "K8 stash != plain at main shapes")
+    require(torch.equal(v8[:n * Nb], vp.reshape(-1)),
+            "K8 values != plain at main shapes")
+    ab8, _ = diff(L8[:, :n * Nb], Lp)
     cells = Nb * Nb * K * S * S
     stash_bytes = Nb * Nb * K * S * S * 4
     # the error in the kernels line: the worst of Gram mode here and of
     # paired mode at the barycenter fit's shapes (phase 3c)
     perr = cp["paired"]["err"]
+    g8 = sb.soft_geometry(S, 1, gb_.T, Nb * Nb, wid)
     row("soft_tiles_stash", ms8, pms8, max(ab8, perr["soft_tiles_stash"]),
         _bound_cells(cells, _soft_fwd_flops(1), SOFT_FWD_SFU,
                      2 * Nb * T * 4, Nb * Nb * 4 + stash_bytes),
-        f"{Nb}x{Nb} ({K} walked tiles, stash {stash_bytes / 1e9:.2f} GB; "
-        f"plain on {n}x{Nb})")
+        f"{Nb}x{Nb} bare launch ({K} walked tiles, stash "
+        f"{stash_bytes / 1e9:.2f} GB, template {g8['template']}; wrapper "
+        f"{wms8:.3f} ms; plain on {n}x{Nb})")
     gbar = (cp["gbar"] * (v8.reshape(Nb, Nb) < 1e29)).reshape(-1) \
         .contiguous()
-    ms9, (gx, _, _, _) = cuda_ms(lambda: sb.soft_bwd_cuda(
-        Xp, Xp, gb_, L8, gbar, gram=True, d=1, g_out=g_out, r=r,
-        gamma=gamma))
+    out = sb.soft_bwd_launch(Xp, Xp, gb_, L8, gbar, **kw)
+    ms9, _ = device_ms(lambda: sb.soft_bwd_launch(Xp, Xp, gb_, L8, gbar,
+                                                  out=out, **kw))
+    del out
+    wms9, (gx, _, _, _) = cuda_ms(lambda: sb.soft_bwd_cuda(
+        Xp, Xp, gb_, L8, gbar, **kw))
     del L8
     gA = gx.reshape(Nb, Nb, -1).sum(1)[:, :T]
+    del gx
     pms9, (gA_p, _, _) = cuda_ms(lambda: sb.gram_soft_bwd_scan(
         Xtr[:n], Xtr, gb_, gamma, Lp, gbar.reshape(Nb, Nb)[:n], block_a=n))
     ab9, _, exc = _soft_diff(gA[:n], gA_p, GRAD_RTOL,
                              GRAD_RTOL * float(gA_p.abs().max()))
     require(exc <= 0, "K9 gA at main shapes")
+    g9 = sb.soft_geometry(S, 1, gb_.T, Nb * Nb, wid, backward=True)
     row("soft_tiles_bwd", ms9, pms9, max(ab9, perr["soft_tiles_bwd"]),
         _bound_cells(cells, _soft_bwd_flops(1), SOFT_BWD_SFU,
                      2 * Nb * T * 4 + stash_bytes + Nb * Nb * 4,
                      2 * Nb * T * 4 + T * T * 4),
-        f"{Nb}x{Nb} ({K} walked tiles; plain on {n}x{Nb})")
+        f"{Nb}x{Nb} bare launch ({K} walked tiles, template "
+        f"{g9['template']}; wrapper with the zeroing and the gw sum "
+        f"{wms9:.3f} ms; plain on {n}x{Nb})")
+    for r_ in rows:
+        if r_["name"] != "soft_tiles_fwd":
+            pm = cp["paired"]["ms"][r_["name"]]
+            bare = cp["paired"]["bare"]["auto"]
+            log(f"  {r_['name']} at the barycenter shapes: bare "
+                f"{bare[0 if r_['name'] == 'soft_tiles_stash' else 1]:.4f} "
+                f"ms, wrapper {pm[0]:.4f} ms, bound {pm[2][0]:.4f} ms")
+    _template_sweep(eng, gamma)
     return rows
+
+
+# the pair counts on either side of PAIRS_MIN_BWD (K9) and PAIRS_MIN_FWD
+# (K7 / K8)
+SWEEP_P = (2048, 4096, 16384, 32768)
+
+
+def _template_sweep(eng, gamma):
+    """Bare K8 / K9 launches in paired mode on the main plan under both
+    templates at P in SWEEP_P pairs (device time, ms): a record of where
+    each threshold sits, not a gate."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import soft_block as sb
+    from repro_torch.kernels.backends import to_tile_major
+    bsp = sb.soft_plan(eng.bsp)
+    S, T = bsp.tile, T_MAIN
+    g_out = sb.result_tile_step(bsp.plan(), S, T)
+    kw = dict(gram=False, d=1, g_out=g_out, r=(T - 1) % S, gamma=gamma)
+    rng = np.random.default_rng(9)
+    C = eng.corpus
+    log(f"  template sweep, paired mode, {g_out + 1} tiles (bare launch, "
+        f"device ms): P, K8 pairs, K8 tiles, K9 pairs, K9 tiles")
+    for P in SWEEP_P:
+        ia = torch.as_tensor(rng.integers(0, C.shape[0], P), device=DEVICE)
+        ib = torch.as_tensor(rng.integers(0, C.shape[0], P), device=DEVICE)
+        xp, yp = to_tile_major(C[ia], S, bsp.T), to_tile_major(C[ib], S,
+                                                                bsp.T)
+        t8, t9 = {}, {}
+        for tmpl in TEMPLATES:
+            t8[tmpl], (v, L) = device_ms(lambda: sb.soft_fwd_cuda(
+                xp, yp, bsp, stash=True, template=tmpl, **kw), reps=3)
+            gb = torch.full((P,), 1.0 / P, device=DEVICE) * (v < 1e29)
+            out = sb.soft_bwd_launch(xp, yp, bsp, L, gb, template=tmpl, **kw)
+            t9[tmpl], _ = device_ms(lambda: sb.soft_bwd_launch(
+                xp, yp, bsp, L, gb, template=tmpl, out=out, **kw), reps=3)
+            del out, L
+        log(f"    {P:6d} {t8['pairs']:9.4f} {t8['tiles']:9.4f} "
+            f"{t9['pairs']:9.4f} {t9['tiles']:9.4f}")
 
 
 def phase_timing(main):

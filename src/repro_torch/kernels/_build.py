@@ -51,11 +51,13 @@ SIGNATURES = {
     },
     "soft_tiles": {
         "soft_tiles_fwd": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F,
-                           _F, _I, _I, _P, _P),
+                           _F, _I, _I, _P, _I, _I, _P, _P, _I, _P),
         "soft_tiles_stash": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
-                             _F, _F, _I, _I, _P, _P, _P),
+                             _F, _F, _I, _I, _P, _P, _I, _I, _P, _P, _I,
+                             _P),
         "soft_tiles_bwd": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F,
-                           _P, _P, _I, _I, _P, _P, _P, _P, _P),
+                           _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                           _I, _P),
     },
 }
 

@@ -24,6 +24,8 @@ path and the yardstick of the CUDA kernels):
                                 sweeps over ``reverse_plan(g_out)``;
   ``soft_alignment_pairs``      assembled (B, T, T) E matrices, the parity
                                 handle against ``core.softdtw``.
+The forwards solve each row's in-row recurrence by a Hillis-Steele scan,
+as the reference and the kernels do.
 
 CUDA wrappers (``csrc/soft_tiles.cu``), each in Gram and paired mode:
   K7 ``soft_tiles_fwd``    <- ``gram_soft_spdtw_block`` /
@@ -31,6 +33,10 @@ CUDA wrappers (``csrc/soft_tiles.cu``), each in Gram and paired mode:
   K8 ``soft_tiles_stash``  <- ``soft_fwd_stash_block``;
   K9 ``soft_tiles_bwd``    <- ``soft_bwd_block``.
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+Each kernel has two launch templates, "pairs" for many pairs and "tiles"
+(the tiles of one tile anti-diagonal at once) for few, picked from the
+pair count by ``soft_geometry`` and equal bit for bit in K7 / K8 and in
+K9's gx, gy and E; ``tile_diagonals`` groups a plan for the latter.
 
 Differentiable entries: ``soft_spdtw_batch`` (aligned pairs) and
 ``soft_spdtw_gram_batch`` (all pairs) are ``torch.autograd.Function``s.
@@ -52,7 +58,8 @@ from repro_torch.core.occupancy import BlockSparsePaths, block_sparsify
 from repro_torch.core.softdtw import NEG
 from . import _build
 from .gram_block import _pair_batch, _tile_scan
-from .spdtw_block import INF, _check_operand, _stream_ptr, result_tile_step
+from .spdtw_block import (INF, SMEM_MAX, _check_operand, _stream_ptr,
+                          result_tile_step)
 
 # the running in-row sum of the forward scan is floored here, so a run of
 # masked cells never reaches -inf (where -inf + inf would give NaN)
@@ -626,6 +633,110 @@ def _assemble_E(Es: torch.Tensor, rmeta: np.ndarray, S: int, Tp: int,
 # ---------------------------------------------------------------------------
 
 SOFT_TILES = (8, 16, 32)        # tile edges the soft kernels are built for
+TEMPLATES = ("auto", "pairs", "tiles")
+# "auto" takes the pairs template from this many pairs up. Phase 4 of
+# chip_smoke.py times both templates in paired mode on one plan, the main
+# one (64 tiles on 15 tile diagonals, the widest 8; S = 16, d = 1), where
+# the crossovers lie between 16,384 and 32,768 pairs for K7 / K8 and
+# between 2,048 and 4,096 for K9. The crossover moves with the diagonals'
+# width and the tile count, so for other plans these are a guess.
+PAIRS_MIN_FWD = 24576
+PAIRS_MIN_BWD = 2560
+# block sizes the forward's pairs template tries, largest first, and the
+# most threads of a tiles-template block (``kTilesThreads``)
+_FWD_THREADS = (128, 64, 32)
+_TILES_THREADS = 512
+_TMPL = {"pairs": 0, "tiles": 1}
+
+
+def tile_diagonals(plan: np.ndarray, reverse: bool = False):
+    """Group the rows of a (forward or reverse) tile plan into tile
+    anti-diagonals ti + tj: ascending for the forward plan, descending for
+    the reverse one. Returns (order, dptr): int32 row indices of ``plan``
+    diagonal by diagonal, each diagonal in plan order, and the offsets of
+    the non-empty diagonals (n_diag + 1). Tiles of one diagonal have
+    distinct ti and distinct tj, and every tile they read was swept on an
+    earlier diagonal; for a fixed ti (or tj) the order is the plan's."""
+    key = plan[:, 0].astype(np.int64) + plan[:, 1]
+    order = np.argsort(-key if reverse else key, kind="stable")
+    ks = key[order]
+    starts = np.nonzero(np.concatenate([[True], ks[1:] != ks[:-1]]))[0] \
+        if len(ks) else np.zeros(0, np.int64)
+    dptr = np.concatenate([starts, [len(ks)]]).astype(np.int32)
+    return order.astype(np.int32), dptr
+
+
+def soft_geometry(S: int, d: int, Tp: int, P: int, width: int, *,
+                  backward: bool = False, template: str = "auto") -> dict:
+    """The launch of K7 / K8 (``backward`` False) or K9 over P pairs on a
+    Tp-long padded grid of S-tiles with d channels, ``width`` tiles on the
+    widest tile anti-diagonal. Mirrors ``csrc/soft_tiles.cu``.
+
+    ``template`` "pairs": many pairs per block. The forward runs one
+    thread per pair (``threads`` per block, the largest of 128, 64, 32
+    whose shared memory fits half the card's, else the whole; the y tile
+    in registers where d <= 3 and S d <= 64); the backward S lanes per
+    pair, 128 threads. "tiles": one pair per block, ``groups`` lane groups
+    of S that sweep the tiles of one tile anti-diagonal together. "auto"
+    takes "pairs" from PAIRS_MIN_FWD / PAIRS_MIN_BWD pairs up, and
+    "tiles" below that or where the pairs template does not fit. Returns
+    template, threads (per block), groups, y_in_registers, smem_bytes."""
+    if template not in TEMPLATES:
+        raise ValueError(f"template {template!r} not in {TEMPLATES}")
+    Ti = Tp // S
+    pairs = None
+    if backward:
+        ppb = _WARPS * 32 // S
+        floats = ppb * (3 * Tp + 6 * S + S * S + d * S)
+        if floats * 4 <= SMEM_MAX:
+            pairs = {"template": "pairs", "threads": _WARPS * 32,
+                     "groups": 0, "y_in_registers": False,
+                     "smem_bytes": floats * 4}
+    else:
+        yreg = d <= 3 and S * d <= 64
+
+        def smem(nt):
+            return 4 * (nt * (Tp + S) + S * S + (0 if yreg else nt * d * S))
+
+        nt = next((nt for limit in (SMEM_MAX // 2, SMEM_MAX)
+                   for nt in _FWD_THREADS if smem(nt) <= limit), None)
+        if nt is not None:
+            pairs = {"template": "pairs", "threads": nt, "groups": 0,
+                     "y_in_registers": yreg, "smem_bytes": smem(nt)}
+    if template == "pairs" or (template == "auto" and pairs is not None and
+                               P >= (PAIRS_MIN_BWD if backward
+                                     else PAIRS_MIN_FWD)):
+        if pairs is None:
+            raise ValueError(f"the pairs template does not fit S={S}, "
+                             f"d={d}, Tp={Tp} in {SMEM_MAX} bytes")
+        return pairs
+    # tiles: bottom edges, double-buffered right edges and a corner per
+    # tile diagonal offset ti - tj; the backward holds E, L and t of each,
+    # and the gy column sums of every lane group
+    per = (9 * Tp + 6 * Ti) if backward else (3 * Tp + 2 * Ti)
+    G = max(1, min(width, _TILES_THREADS // S))
+    while G > 1 and (per + (G * d * S if backward else 0)) * 4 > SMEM_MAX:
+        G -= 1
+    floats = per + (G * d * S if backward else 0)
+    if floats * 4 > SMEM_MAX:
+        raise ValueError(f"the tiles template needs {floats * 4} bytes of "
+                         f"shared memory at S={S}, d={d}, Tp={Tp}")
+    return {"template": "tiles", "threads": G * S, "groups": G,
+            "y_in_registers": False, "smem_bytes": floats * 4}
+
+
+def _diagonals_on_device(bsp: BlockSparsePaths, key: tuple, plan, reverse,
+                         device):
+    """``tile_diagonals`` of ``plan`` as int32 tensors on ``device``, kept
+    on ``bsp`` under ``key``; returns (order, dptr, widest diagonal)."""
+    key = (str(torch.device(device)),) + key
+    if key not in bsp._device_cache:
+        order, dptr = tile_diagonals(plan, reverse=reverse)
+        width = int(np.diff(dptr).max()) if len(dptr) > 1 else 1
+        bsp._device_cache[key] = (torch.as_tensor(order, device=device),
+                                  torch.as_tensor(dptr, device=device),
+                                  width)
+    return bsp._device_cache[key]
 
 
 def _soft_operands(xp, yp, bsp, gram: bool, d: int):
@@ -647,11 +758,12 @@ def _soft_operands(xp, yp, bsp, gram: bool, d: int):
 
 def soft_fwd_cuda(xp: torch.Tensor, yp: torch.Tensor, bsp: BlockSparsePaths,
                   *, gram: bool, d: int, g_out: int, r: int, gamma: float,
-                  stash: bool = False):
+                  stash: bool = False, template: str = "auto"):
     """Launch K7 (``soft_tiles_fwd``) or, with ``stash``, K8
     (``soft_tiles_stash``) on tile-major f32 operands over the plan steps
     0..g_out. Gram mode: xp (Na, d*Tp), yp (Nb, d*Tp), pair p = a*Nb + b;
-    paired mode: row p of each. Returns (values (P,), Lstash
+    paired mode: row p of each. ``template`` as in ``soft_geometry``; both
+    templates give the same bits. Returns (values (P,), Lstash
     (g_out+1, P, S*S) or None) on the current stream, unsynchronised."""
     dev, Na, Nb, P = _soft_operands(xp, yp, bsp, gram, d)
     S = bsp.tile
@@ -661,35 +773,38 @@ def soft_fwd_cuda(xp: torch.Tensor, yp: torch.Tensor, bsp: BlockSparsePaths,
                      device=dev) if stash else None
     if P == 0:
         return out, Ls
+    order, dptr, width = _diagonals_on_device(
+        bsp, ("diagonals", g_out), bsp.plan()[:g_out + 1], False, dev)
+    geo = soft_geometry(S, d, bsp.T, P, width, template=template)
     lib = _build.library("soft_tiles")
     args = (xp.data_ptr(), yp.data_ptr(), Na, Nb, int(gram), d, bsp.T,
             meta.data_ptr(), g_out + 1, blocks.data_ptr(), S,
             -1.0 / gamma, gamma, g_out, r, out.data_ptr())
+    tail = (_TMPL[geo["template"]], geo["threads"], order.data_ptr(),
+            dptr.data_ptr(), dptr.shape[0] - 1, _stream_ptr(dev))
     if stash:
-        rc = lib.soft_tiles_stash(*args, Ls.data_ptr(), _stream_ptr(dev))
+        rc = lib.soft_tiles_stash(*args, Ls.data_ptr(), *tail)
         name = "soft_tiles_stash"
     else:
-        rc = lib.soft_tiles_fwd(*args, _stream_ptr(dev))
+        rc = lib.soft_tiles_fwd(*args, *tail)
         name = "soft_tiles_fwd"
     _build.LAUNCHES[name] += 1
     _build.check(rc, name)
     return out, Ls
 
 
-def soft_bwd_cuda(xp: torch.Tensor, yp: torch.Tensor, bsp: BlockSparsePaths,
-                  Lstash: torch.Tensor, gbar: torch.Tensor, *, gram: bool,
-                  d: int, g_out: int, r: int, gamma: float,
-                  eblocks: bool = False):
-    """Launch K9 (``soft_tiles_bwd``): the reverse sweep over
-    ``reverse_plan(g_out)`` on tile-major f32 operands, with the stash of
-    K8 (or of the plain forward: same layout) and the per-pair cotangent
-    ``gbar`` (P,). Returns (gx (P, d*Tp), gy (P, d*Tp) per pair, gw
-    (Tp, Tp), E blocks (K, P, S*S) in reverse-plan order or None).
-
-    The kernel writes per-pair series cotangents and one weight-gradient
-    partial per thread block; the sums over blocks (and, in Gram mode,
-    over the other side) are taken here in a fixed order, so the
-    gradients are the same from run to run."""
+def soft_bwd_launch(xp: torch.Tensor, yp: torch.Tensor,
+                    bsp: BlockSparsePaths, Lstash: torch.Tensor,
+                    gbar: torch.Tensor, *, gram: bool, d: int, g_out: int,
+                    r: int, gamma: float, eblocks: bool = False,
+                    template: str = "auto", out: Optional[tuple] = None):
+    """The bare launch of K9 (``soft_tiles_bwd``), with the outputs it
+    writes: (gx (P, d*Tp), gy (P, d*Tp) per pair, zeroed here; gw_part
+    (n_parts, K, S*S), one weight-gradient partial per thread block of the
+    pairs template and per pair of the tiles template; E blocks
+    (K, P, S*S) in reverse-plan order or None). ``soft_bwd_cuda`` sums
+    the partials. ``out``: a previous call's outputs to launch into (the
+    kernel adds to gx and gy), so that a timing sees the kernel alone."""
     dev, Na, Nb, P = _soft_operands(xp, yp, bsp, gram, d)
     S, Tp = bsp.tile, bsp.T
     K = g_out + 1
@@ -697,32 +812,69 @@ def soft_bwd_cuda(xp: torch.Tensor, yp: torch.Tensor, bsp: BlockSparsePaths,
     _check_operand("gbar", gbar, (P,), dev)
     rmeta = bsp.reverse_on_device(g_out, dev)
     _, blocks = bsp.on_device(dev)
+    order, dptr, width = _diagonals_on_device(
+        bsp, ("reverse diagonals", g_out), bsp.reverse_plan(g_out), True,
+        dev)
+    geo = soft_geometry(S, d, Tp, P, width, backward=True,
+                        template=template)
     ppb = _WARPS * 32 // S
-    n_blocks = (P + ppb - 1) // ppb
-    gx = torch.zeros((P, d * Tp), dtype=torch.float32, device=dev)
-    gy = torch.zeros((P, d * Tp), dtype=torch.float32, device=dev)
-    gw_part = torch.empty((n_blocks, K, S * S), dtype=torch.float32,
-                          device=dev)
-    E = torch.empty((K, P, S * S), dtype=torch.float32, device=dev) \
-        if eblocks else None
-    gw = torch.zeros((Tp, Tp), dtype=torch.float32, device=dev)
+    n_parts = (P + ppb - 1) // ppb if geo["template"] == "pairs" else P
+    if out is not None:
+        gx, gy, gw_part, E = out
+        _check_operand("gw_part", gw_part, (n_parts, K, S * S), dev)
+    else:
+        gx = torch.zeros((P, d * Tp), dtype=torch.float32, device=dev)
+        gy = torch.zeros((P, d * Tp), dtype=torch.float32, device=dev)
+        gw_part = torch.empty((n_parts, K, S * S), dtype=torch.float32,
+                              device=dev)
+        E = torch.empty((K, P, S * S), dtype=torch.float32, device=dev) \
+            if eblocks else None
     if P == 0:
-        return gx, gy, gw, E
+        return gx, gy, gw_part, E
     lib = _build.library("soft_tiles")
     rc = lib.soft_tiles_bwd(
         xp.data_ptr(), yp.data_ptr(), Na, Nb, int(gram), d, Tp,
         rmeta.data_ptr(), K, blocks.data_ptr(), S, -1.0 / gamma,
         Lstash.data_ptr(), gbar.data_ptr(), r, r, gx.data_ptr(),
         gy.data_ptr(), gw_part.data_ptr(),
-        None if E is None else E.data_ptr(), _stream_ptr(dev))
+        None if E is None else E.data_ptr(), _TMPL[geo["template"]],
+        geo["threads"], order.data_ptr(), dptr.data_ptr(),
+        dptr.shape[0] - 1, _stream_ptr(dev))
     _build.LAUNCHES["soft_tiles_bwd"] += 1
     _build.check(rc, "soft_tiles_bwd")
+    return gx, gy, gw_part, E
+
+
+def soft_bwd_cuda(xp: torch.Tensor, yp: torch.Tensor, bsp: BlockSparsePaths,
+                  Lstash: torch.Tensor, gbar: torch.Tensor, *, gram: bool,
+                  d: int, g_out: int, r: int, gamma: float,
+                  eblocks: bool = False, template: str = "auto"):
+    """Launch K9 (``soft_tiles_bwd``): the reverse sweep over
+    ``reverse_plan(g_out)`` on tile-major f32 operands, with the stash of
+    K8 (or of the plain forward: same layout) and the per-pair cotangent
+    ``gbar`` (P,). Returns (gx (P, d*Tp), gy (P, d*Tp) per pair, gw
+    (Tp, Tp), E blocks (K, P, S*S) in reverse-plan order or None).
+    ``template`` as in ``soft_geometry``: both give the same gx, gy and E
+    bits; gw sums its partials in another order.
+
+    The kernel writes per-pair series cotangents and weight-gradient
+    partials; the sums over partials (and, in Gram mode, over the other
+    side) are taken here in a fixed order, so the gradients are the same
+    from run to run."""
+    S, Tp = bsp.tile, bsp.T
+    K = g_out + 1
+    gx, gy, gw_part, E = soft_bwd_launch(
+        xp, yp, bsp, Lstash, gbar, gram=gram, d=d, g_out=g_out, r=r,
+        gamma=gamma, eblocks=eblocks, template=template)
+    gw = torch.zeros((Tp, Tp), dtype=torch.float32, device=gx.device)
+    if gx.shape[0] == 0:
+        return gx, gy, gw, E
     gw_k = gw_part.sum(0).reshape(K, S, S)
     rm = bsp.reverse_plan(g_out)
     Ti = Tp // S
     gw = gw.reshape(Ti, S, Ti, S)
-    gw[torch.as_tensor(rm[:, 0], device=dev), :,
-       torch.as_tensor(rm[:, 1], device=dev), :] = gw_k
+    gw[torch.as_tensor(rm[:, 0], device=gx.device), :,
+       torch.as_tensor(rm[:, 1], device=gx.device), :] = gw_k
     return gx, gy, gw.reshape(Tp, Tp), E
 
 
