@@ -21,7 +21,10 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
      corridor and a support; K3 and K4 must agree bit for bit;
    - K5 (``dtw_wavefront``) and K6 (``dtw_banded``, pairs and Gram) against
      ``wavefront_dtw_plain`` / ``banded_dtw_plain`` over the radius grid
-     up to w = 26, at d in {1, 3}, and K6 at T = 1024, w = 204.
+     up to w = 26, at d in {1, 3}, and K6 at T = 1024, w = 204; then at
+     every template boundary: K6 at 2w + 1 in {1, 3, 7, 15, 31, 33, 63,
+     65, 255, 257} and T in {5, 24, 128, 129}, each template that takes
+     the width forced, and K5 at T in {1, 2, 31, 33, 128, 129, 512, 513}.
    - K7 (``soft_tiles_fwd``), K8 (``soft_tiles_stash``) and K9
      (``soft_tiles_bwd``) against ``gram_soft_spdtw_scan`` /
      ``soft_spdtw_paired_scan``, ``gram_soft_fwd_stash`` /
@@ -31,10 +34,10 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
      mode, on a random support, a masked corner cell, a ragged T_orig and
      an inactive corner tile, under each launch template ("pairs",
      "tiles") forced and the wrappers' own choice.
-   K1-K4, K6, K7 and K8 must equal their plain versions bit for bit (K7
-   = K8, and K9's two templates give equal gx, gy and E blocks); the
-   limit is rel 1e-6 for K5, and rtol 1e-4 / atol 1e-5 for K9's gradients
-   and E blocks (f32 sums in another order).
+   K1-K8 must equal their plain versions bit for bit (K7 = K8, and K9's
+   two templates give equal gx, gy and E blocks); the limit is rtol 1e-4
+   / atol 1e-5 for K9's gradients and E blocks (f32 sums in another
+   order).
 3. The SP-DTW main path at the UCR TwoPatterns shape (1000 train / 4000
    test, T = 128, 4 classes): ``fit`` learns the support from all
    499,500 train pairs on the card, ``engine.gram`` runs K1 over
@@ -71,7 +74,9 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    idle share for calls of both paths.
 4. Timing at the paths' shapes: each kernel against its plain version,
    with its bound (K8 / K9 as their bare launches' device time, with the
-   template each launch takes); both K8 / K9 templates at the pair counts
+   template each launch takes); K6 at each ``select_radius`` width under
+   each of its templates that takes the width, and at T = 1024, w = 204;
+   K5 with and without a radius; both K8 / K9 templates at the pair counts
    on either side of ``PAIRS_MIN_FWD`` / ``PAIRS_MIN_BWD`` (a record, not
    a gate); one JSON line ``{"kernels": ...}`` of all nine kernels.
 
@@ -361,8 +366,9 @@ def _check_slice2():
     K4 at nu = 0.5 on the full grid (the wide sweep), the radius-6
     corridor and a band support (the narrow sweep), and K6 at w = 204 (a
     409-cell strip, the shared-memory sweep) and K5 on the full grid (its
-    shared-memory diagonals past T = 512). K3, K4 and K6 must equal
-    their plain versions bit for bit, and K3 and K4 each other."""
+    shared-memory diagonals past T = 512). K3-K6 must equal their plain
+    versions bit for bit, and K3 and K4 each other; so must K5 and K6 at
+    their template boundaries (``_check_dtw_templates``)."""
     import numpy as np
     import torch
     from repro_torch.core.occupancy import learn_sparse_paths
@@ -376,14 +382,13 @@ def _check_slice2():
     worst = {k: [0.0, 0.0] for k in ("krdtw_gram", "krdtw_paired",
                                      "dtw_wavefront", "dtw_banded")}
 
-    def record(kernel, what, got, want, limit, exact=True):
+    def record(kernel, what, got, want, limit):
         ab, rel = diff(got, want)
         worst[kernel][0] = max(worst[kernel][0], ab)
         worst[kernel][1] = max(worst[kernel][1], rel)
         log(f"  {what}: max abs {ab:.3g} max rel {rel:.3g}")
         require(rel <= limit, f"{what}: rel {rel} > {limit}")
-        if exact:
-            require(torch.equal(got, want), f"{what}: not bit for bit")
+        require(torch.equal(got, want), f"{what}: not bit for bit")
 
     ds = make_cbf(n_train=40, n_test=24, T=128)
     learned = learn_sparse_paths(torch.as_tensor(ds.X_train), theta=2.0)
@@ -421,8 +426,7 @@ def _check_slice2():
                 label = f"T={T} d={d} radius {r}"
                 record("dtw_wavefront", f"K5 {label}",
                        kw.wavefront_dtw(x, y, radius=r),
-                       kw.wavefront_dtw_plain(x, y, radius=r), REL_LIMIT,
-                       exact=False)
+                       kw.wavefront_dtw_plain(x, y, radius=r), REL_LIMIT)
                 if r is None:
                     continue
                 record("dtw_banded", f"K6 {label}", kb.banded_dtw(x, y, r),
@@ -430,8 +434,57 @@ def _check_slice2():
                 record("dtw_banded", f"K6 gram {label}",
                        kb.banded_dtw_gram(x[:6], y, r),
                        kb.banded_dtw_gram_plain(x[:6], y, r), REL_LIMIT)
-    log(f"  K3 == K4 bit for bit on every case; K3, K4, K6 == plain")
+    _check_dtw_templates(record, rng)
+    log(f"  K3 == K4 bit for bit on every case; K3-K6 == plain")
     return worst
+
+
+# K6's half-widths at its template boundaries: 2w + 1 = 1, 3, 7, 15, 31,
+# 33, 63 ("thread" up to 64 cells), 65, 255 ("lanes" up to 256), 257
+# ("wide")
+K6_BOUNDARY_RADII = (0, 1, 3, 7, 15, 16, 31, 32, 127, 128)
+
+
+def _check_dtw_templates(record, rng):
+    """K5 and K6 against their plain versions bit for bit at every
+    launch-template boundary: K6 pairs and Gram (the wrappers' template,
+    and each template that takes the width, forced) at T in {5, 24, 128,
+    129} (strips wider than the series; the thread template's staged row
+    chunks), d in {1, 3}; K5 at T in {1, 2, 31, 33, 128, 129, 512, 513}
+    (1-16 positions per lane, the shared-memory diagonals past 512),
+    radius None, 0, 3, 26, and at d = 5 (past its 4 register channels)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dtw_banded as kb
+    from repro_torch.kernels import dtw_wavefront as kw
+    dev = torch.device(DEVICE)
+    for T in (5, 24, 128, 129):
+        for d in (1, 3):
+            x, y = (torch.as_tensor(rng.normal(size=(9, T, d)).astype(
+                np.float32), device=dev) for _ in range(2))
+            for w in K6_BOUNDARY_RADII:
+                label = f"T={T} d={d} w={w}"
+                record("dtw_banded", f"K6 {label}", kb.banded_dtw(x, y, w),
+                       kb.banded_dtw_plain(x, y, w), REL_LIMIT)
+                want = kb.banded_dtw_gram_plain(x[:4], y, w)
+                for tmpl in kb.TEMPLATES:
+                    try:
+                        kb.banded_geometry(w, T, d, tmpl)
+                    except ValueError:
+                        continue   # this template does not take the width
+                    record("dtw_banded", f"K6 gram {tmpl} {label}",
+                           kb.dtw_banded_cuda(x[:4].contiguous(), y, w,
+                                              gram=True, template=tmpl),
+                           want, REL_LIMIT)
+    for T in (1, 2, 31, 33, 128, 129, 512, 513):
+        for d in ((1, 3, 5) if T <= 129 else (1,)):
+            x, y = (torch.as_tensor(rng.normal(size=(6, T, d)).astype(
+                np.float32), device=dev) for _ in range(2))
+            for r in (None, 0, 3, 26):
+                record("dtw_wavefront", f"K5 T={T} d={d} radius {r}",
+                       kw.wavefront_dtw(x, y, radius=r),
+                       kw.wavefront_dtw_plain(x, y, radius=r), REL_LIMIT)
+    log("  K5 / K6 at their template boundaries: bit for bit")
 
 
 def _soft_diff(got, want, rtol, atol):
@@ -1194,8 +1247,12 @@ def phase_timing_slice2(kp, ds):
     """K3-K6 at the kernel path's shapes against their plain versions,
     with their bounds. K3 is timed at each of its shapes (the learned
     support 4000 x 1000, the full grid and the radius-0 corridor 1000 x
-    1000); plain K3 and plain K6 are timed on 64 x 1000 slices (both are
-    launch-bound loops over diagonals / rows)."""
+    1000); K5 without a radius and at the selected one; K6 at each
+    ``select_radius`` width (1000 x 1000) under its "thread" and "lanes"
+    templates, and a 128 x 128 Gram at T = 1024, w = 204 ("wide"). Plain
+    K3 and plain K6 are timed on 64 x 1000 slices (both are launch-bound
+    loops over diagonals / rows). The kernels line takes K5's device time
+    without a radius and K6's at w = 26 under the wrapper's template."""
     import torch
     from repro_torch.core.dtw import band_cells
     from repro_torch.kernels import dtw_banded as kb
@@ -1272,36 +1329,94 @@ def phase_timing_slice2(kp, ds):
         _krdtw_bound(B, T, sp.n_cells, 2 * B * T * 4, B * 4),
         f"{B} pairs sp_krdtw")
 
-    # K5: DTW over the 4000 (query, nearest) pairs of engine.pairs
+    # K5: DTW over the 4000 (query, nearest) pairs of engine.pairs, without
+    # a radius (dtw) and at the selected one (dtw_sc); device time, and the
+    # wrapper's time with the host's share
     y1 = Xtr[nn]
-    ms, P = cuda_ms(lambda: kw.wavefront_dtw(Xte, y1), reps=5, warmup=1)
-    pms, Pp = cuda_ms(lambda: kw.wavefront_dtw_plain(Xte, y1))
-    ab, rel = diff(P, Pp)
-    require(rel <= REL_LIMIT, f"K5 at main shapes: rel {rel}")
-    row("dtw_wavefront", ms, pms, ab,
-        _bound_cells(Na * T * T, _dtw_flops(1), 0, 2 * Na * T * 4, Na * 4),
-        f"{Na} pairs full grid")
+    k5 = {}
+    for r in (None, radius):
+        ms, P = cuda_ms(lambda: kw.wavefront_dtw(Xte, y1, radius=r),
+                        reps=5, warmup=1)
+        dms, _ = device_ms(lambda: kw.wavefront_dtw(Xte, y1, radius=r))
+        pms, Pp = cuda_ms(lambda: kw.wavefront_dtw_plain(Xte, y1, radius=r))
+        ab, rel = diff(P, Pp)
+        require(torch.equal(P, Pp), f"K5 at main shapes, radius {r}: rel "
+                f"{rel}")
+        cells = _admissible_cells(T, r)
+        bound = _bound_cells(Na * cells, _dtw_flops(1), 0, 2 * Na * T * 4,
+                             Na * 4)
+        k5[r] = (dms, pms, ab, bound)
+        log(f"  dtw_wavefront {Na} pairs radius {r} ({cells} cells): "
+            f"{dms:.4f} ms device, {ms:.4f} ms with the wrapper (plain "
+            f"{pms:.1f} ms, bound {bound[0]:.4f} ms by {bound[1]})")
+    dms, pms, ab, bound = k5[None]
+    row("dtw_wavefront", dms, pms, ab, bound, f"{Na} pairs full grid")
 
-    # K6: the dtw_sc Gram at the selected radius, then the widest strip
-    # the path runs (select_radius's last candidate, over train x train)
+    # K6: the dtw_sc Gram at the selected radius; the five select_radius
+    # Grams (train x train) under the thread template and the lanes one it
+    # replaced there, each held bit for bit against its plain version on a
+    # slice of rows; and the long strip, T = 1024, w = 204, which phase 2
+    # checks
+    geo = kb.banded_geometry(radius, T, 1)
     ms, G6 = cuda_ms(lambda: kb.banded_dtw_gram(Xte, Xtr, radius), reps=3,
                      warmup=1)
     require(torch.equal(G6, kp["Gs"]), "K6 not deterministic across runs")
-    log(f"  dtw_banded {Na}x{Nb} radius {radius} (the dtw_sc Gram): "
-        f"{ms:.3f} ms")
-    w = max(int(round(f * T)) for f in RADIUS_FRACS)
-    ms, G6 = cuda_ms(lambda: kb.banded_dtw_gram(Xtr, Xtr, w), reps=3,
-                     warmup=1)
+    A3 = Xtr[..., None].contiguous()
+    # the lanes template is the one the thread template replaced at this
+    # width
+    G6l = kb.dtw_banded_cuda(Xte[..., None].contiguous(), A3, radius,
+                             gram=True, template="lanes")
+    require(torch.equal(G6, G6l), "the dtw_sc Gram differs between the "
+            "thread and lanes templates")
+    log(f"  dtw_banded {Na}x{Nb} radius {radius} (the dtw_sc Gram, "
+        f"{geo['template']}): {ms:.3f} ms; equal to the lanes template's, "
+        f"bit for bit")
     n6 = 64
-    pms, Gp6 = cuda_ms(lambda: kb.banded_dtw_gram_plain(Xtr[:n6], Xtr, w,
-                                                        block=n6 * Nb))
-    ab, rel = diff(G6[:n6], Gp6)
-    require(rel <= REL_LIMIT, f"K6 at main shapes: rel {rel}")
-    cells = band_cells(T, T, w)
-    row("dtw_banded", ms, pms, ab,
-        _bound_cells(Nb * Nb * cells, _dtw_flops(1), 0, 2 * Nb * T * 4,
-                     Nb * Nb * 4),
-        f"{Nb}x{Nb} radius {w} ({cells} cells; plain on {n6}x{Nb})")
+    k6 = {}
+    for w in sorted({int(round(f * T)) for f in RADIUS_FRACS}):
+        auto = kb.banded_geometry(w, T, 1)["template"]
+        pms, Gp6 = cuda_ms(lambda: kb.banded_dtw_gram_plain(
+            Xtr[:n6], Xtr, w, block=n6 * Nb))
+        cells = band_cells(T, T, w)
+        bound = _bound_cells(Nb * Nb * cells, _dtw_flops(1), 0,
+                             2 * Nb * T * 4, Nb * Nb * 4)
+        times = {}
+        for tmpl in ("thread", "lanes"):     # every width here takes both
+            dms, G6 = device_ms(lambda: kb.dtw_banded_cuda(
+                A3, A3, w, gram=True, template=tmpl), reps=3)
+            require(torch.equal(G6[:n6], Gp6), f"K6 {tmpl} w = {w}: not "
+                    f"bit for bit with the plain version")
+            times[tmpl] = dms
+        ms, G6 = cuda_ms(lambda: kb.banded_dtw_gram(Xtr, Xtr, w), reps=3,
+                         warmup=1)
+        ab, _ = diff(G6[:n6], Gp6)
+        k6[w] = (times[auto], pms, ab, bound)
+        log(f"  dtw_banded {Nb}x{Nb} radius {w} ({cells} cells, auto "
+            f"{auto}): device " + ", ".join(
+                f"{t} {v:.3f} ms" for t, v in times.items()) +
+            f"; {ms:.3f} ms with the wrapper (plain {pms:.1f} ms on "
+            f"{n6}x{Nb}, bound {bound[0]:.4f} ms by {bound[1]})")
+    log(f"  dtw_banded select_radius widths, device ms summed: "
+        f"{sum(v[0] for v in k6.values()):.3f}")
+    w = max(k6)
+    row("dtw_banded", *k6[w], f"{Nb}x{Nb} radius {w} (auto, device; "
+        f"plain on {n6}x{Nb})")
+    TL, wl, nl = 1024, 204, 128
+    g = torch.Generator(device="cpu").manual_seed(5)
+    L = torch.randn((nl, TL, 1), generator=g).to(DEVICE)
+    geo = kb.banded_geometry(wl, TL, 1)
+    dms, GL = device_ms(lambda: kb.dtw_banded_cuda(L, L, wl, gram=True),
+                        reps=3)
+    pms, GLp = cuda_ms(lambda: kb.banded_dtw_gram_plain(L[:2], L, wl,
+                                                        block=2 * nl))
+    require(torch.equal(GL[:2], GLp), "K6 at T = 1024, w = 204: not bit for "
+            "bit with the plain version")
+    cells = band_cells(TL, TL, wl)
+    bound = _bound_cells(nl * nl * cells, _dtw_flops(1), 0,
+                         2 * nl * TL * 4, nl * nl * 4)
+    log(f"  dtw_banded {nl}x{nl} T={TL} radius {wl} ({cells} cells, "
+        f"{geo['template']}): {dms:.3f} ms device (plain {pms:.1f} ms on "
+        f"2x{nl}, bound {bound[0]:.4f} ms by {bound[1]})")
     return rows
 
 

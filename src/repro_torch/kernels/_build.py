@@ -47,7 +47,8 @@ SIGNATURES = {
     },
     "dtw_wavefront": {
         "dtw_wavefront": (_P, _P, _I, _I, _I, _I, _P, _P),
-        "dtw_banded": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+        "dtw_banded": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                       _P),
     },
     "soft_tiles": {
         "soft_tiles_fwd": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _F,

@@ -15,29 +15,40 @@
 // multiplications and d - 1 additions for the cost, then min and add (K5:
 // 2 min + 1 add; K6: the Hillis-Steele scan adds about 4 log2(2w+1)
 // operations per cell). The inputs are a few MB of series and the outputs
-// one float per pair, so these are instruction-bound kernels; K6's rows
-// also wait on log2(2w+1) dependent shuffle steps.
+// one float per pair, so these are instruction-bound kernels, and what
+// they lose beyond their bound is loads, shuffles and synchronisation.
 //
 // What the design does about it. The TPU kernels put 8 pairs on the
 // sublanes and a diagonal (K5) or a strip row (K6) on the lanes. Here:
 //   K5: one warp owns one pair; lane l holds diagonal positions
-//       i = l * C .. l * C + C - 1 (C = 1, 2, 4, 8 or 16; T <= 512). The
-//       i - 1 neighbour is a register or one __shfl_up_sync. The Sakoe-Chiba
-//       radius is the test |2i - k| <= r on each position. Longer series
-//       keep the three live diagonals in shared memory
-//       (``wavefront_wide_kernel``).
-//   K6: a group of G lanes owns one pair (G the power of two >= 2w+1, at
-//       most 32, so several pairs share a warp when the strip is narrow);
-//       lane l holds strip cells u = c * G + l (C = ceil((2w+1)/G) <= 8).
-//       With C = 1 the in-row scan and the top neighbour are shuffles inside
-//       the group; with C > 1 they go through per-pair shared memory.
-//       Strips wider than 256 (``strip_pair_wide``) give each pair a warp
-//       whose lanes loop over the strip, with the row and the scan in
-//       shared memory, so any radius runs. In
-//       the Gram mode pair p is (A row p / Nb, B row p % Nb), so the dtw_sc
-//       Gram never expands the series into a pair batch.
-// Series are read from device memory through L1: each pair rereads its own
-// two rows, which stay cached.
+//       i = l * C .. l * C + C - 1 (C = 1, 2, 4, 8 or 16; T <= 512) as a
+//       register pipeline: x[i] is read once into registers, and y moves
+//       one position up per diagonal step (position i at step k + 1 needs
+//       the y that position i - 1 held at step k), by one register move
+//       or one __shfl_up_sync, with y[k] entering at lane 0 from a batch
+//       of 32 that the warp loads coalesced, 32 steps ahead. The step
+//       loop has no global load. Positions outside the grid's and the
+//       Sakoe-Chiba corridor's range [lo_k, hi_k] of the diagonal take
+//       +INF without a cost. Up to 4 channels sit in registers; more
+//       channels, and longer series, keep the three live diagonals in
+//       shared memory (``wavefront_wide_kernel``).
+//   K6: three templates, picked by ``dtw_banded.banded_geometry``:
+//     "thread" (2w+1 <= 64): one thread owns one pair and holds the strip
+//       row in registers, padded to WP (the power of two >= 2w+1), so the
+//       top neighbour is a register and the in-row scan runs with
+//       compile-time indices. The block stages its pairs' y rows, a chunk
+//       of strip rows at a time, into shared memory, thread-interleaved
+//       (row pitch 129 floats, so the transposed staging store and the
+//       per-thread reads hit 32 distinct banks).
+//     "lanes" (2w+1 <= 256): a group of G lanes owns one pair (G the power
+//       of two >= 2w+1, at most 32); lane l holds strip cells u = c * G + l
+//       (C = ceil((2w+1)/G) <= 8). With C = 1 the in-row scan and the top
+//       neighbour are shuffles inside the group; with C > 1 they go
+//       through per-pair shared memory.
+//     "wide" (any width): each pair has a warp whose lanes loop over the
+//       strip, with the row and the scan in shared memory.
+//   In the Gram mode pair p is (A row p / Nb, B row p % Nb), so the dtw_sc
+//   Gram never expands the series into a pair batch.
 //
 // Floating point. The cost uses the _rn intrinsics and the file is built
 // with --fmad=false, so the channel sum rounds as the plain version's does.
@@ -51,6 +62,7 @@ namespace {
 
 constexpr float kInf = 1.0e30f;
 constexpr int kWarps = 4;               // warps per thread block
+constexpr int kRegChannels = 4;         // K5: most channels in registers
 
 // squared distance of x[i] and y[j], channels summed left to right;
 // +INF when any channel of y reads >= INF (the reference's pad test)
@@ -71,23 +83,95 @@ __device__ __forceinline__ float cost(const float* __restrict__ x,
 
 // ---------------------------------------------------------------- K5 ----
 
-template <int C>
+// Loads y[k0 + lane] (D channels) for the batch of diagonal steps k0 ..
+// k0 + 31: +INF past the series; a row with any channel >= INF (or NaN)
+// gets +INF in channel 0, so that channel 0 alone carries the reference's
+// pad test (ysh < INF on every channel).
+template <int D>
+__device__ __forceinline__ void load_batch(const float* __restrict__ y,
+                                           int T, int k0, int lane,
+                                           float (&v)[D]) {
+  const int j = k0 + lane;
+  bool bad = j >= T;
+#pragma unroll
+  for (int ch = 0; ch < D; ++ch) {
+    v[ch] = j < T ? __ldg(y + (size_t)j * D + ch) : kInf;
+    bad = bad || !(v[ch] < kInf);
+  }
+  if (bad) v[0] = kInf;
+}
+
+// One pair per warp, D channels in registers. Position i = lane * C + c
+// holds x[i] for the whole sweep and, at step k, y[k - i]: the y values
+// move up one position per step. Every D value is a path sum in path
+// order (min and add only), so any sweep order gives the plain version's
+// bits; positions outside [lo, hi] take +INF as the plain version's
+// INF + best, clamped, does.
+template <int C, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 wavefront_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-                 int P, int T, int d, int radius, float* __restrict__ out) {
+                 int P, int T, int radius, float* __restrict__ out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long p = (long long)blockIdx.x * kWarps + warp;
   if (p >= P) return;
-  const float* x = X + p * T * d;
-  const float* y = Y + p * T * d;
+  const float* x = X + p * T * D;
+  const float* y = Y + p * T * D;
+  float xv[D][C], yv[D][C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = lane * C + c;
+#pragma unroll
+    for (int ch = 0; ch < D; ++ch) {
+      xv[ch][c] = i < T ? __ldg(x + (size_t)i * D + ch) : 0.f;
+      yv[ch][c] = kInf;
+    }
+  }
+  float ycur[D], ynext[D];
+  load_batch<D>(y, T, 0, lane, ycur);
+  load_batch<D>(y, T, 32, lane, ynext);
+  // step 0: position 0 holds y[0]
+#pragma unroll
+  for (int ch = 0; ch < D; ++ch) {
+    const float y0 = __shfl_sync(0xffffffffu, ycur[ch], 0);
+    if (lane == 0) yv[ch][0] = y0;
+  }
   float dm1[C], dm2[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const bool first = lane == 0 && c == 0;   // cell (0, 0), always valid
-    dm1[c] = first ? cost(x, y, 0, 0, d) : kInf;
+    // cell (0, 0), always inside the grid and the corridor
+    float acc = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < D; ++ch) {
+      const float df = __fsub_rn(xv[ch][c], yv[ch][c]);
+      const float sq = __fmul_rn(df, df);
+      acc = ch == 0 ? sq : __fadd_rn(acc, sq);
+    }
+    const bool first = lane == 0 && c == 0;
+    dm1[c] = first && yv[0][0] < kInf ? acc : kInf;
     dm2[c] = kInf;
   }
   for (int k = 1; k < 2 * T - 1; ++k) {
+    if ((k & 31) == 0) {
+#pragma unroll
+      for (int ch = 0; ch < D; ++ch) ycur[ch] = ynext[ch];
+      load_batch<D>(y, T, k + 32, lane, ynext);
+    }
+    // move y up one position; y[k] enters at position 0
+#pragma unroll
+    for (int ch = 0; ch < D; ++ch) {
+      const float enter = __shfl_sync(0xffffffffu, ycur[ch], k & 31);
+      const float up = __shfl_up_sync(0xffffffffu, yv[ch][C - 1], 1);
+#pragma unroll
+      for (int c = C - 1; c > 0; --c) yv[ch][c] = yv[ch][c - 1];
+      yv[ch][0] = lane == 0 ? enter : up;
+    }
+    // the diagonal's cells inside the grid and the corridor |2i - k| <= r
+    int lo = k - T + 1 > 0 ? k - T + 1 : 0;
+    int hi = k < T - 1 ? k : T - 1;
+    if (radius >= 0) {
+      lo = max(lo, (k - radius + 1) >> 1);   // ceil((k - r) / 2)
+      hi = min(hi, (k + radius) >> 1);
+    }
     float u1 = __shfl_up_sync(0xffffffffu, dm1[C - 1], 1);
     float u2 = __shfl_up_sync(0xffffffffu, dm2[C - 1], 1);
     if (lane == 0) { u1 = kInf; u2 = kInf; }
@@ -95,14 +179,18 @@ wavefront_kernel(const float* __restrict__ X, const float* __restrict__ Y,
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int i = lane * C + c;
-      const int j = k - i;
-      bool valid = i < T && j >= 0 && j < T;
-      if (radius >= 0) valid = valid && abs(2 * i - k) <= radius;
-      const float cst = valid ? cost(x, y, i, j, d) : kInf;
+      float acc = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < D; ++ch) {
+        const float df = __fsub_rn(xv[ch][c], yv[ch][c]);
+        const float sq = __fmul_rn(df, df);
+        acc = ch == 0 ? sq : __fadd_rn(acc, sq);
+      }
+      const bool ok = i >= lo && i <= hi && yv[0][c] < kInf;
       const float sh1 = c ? dm1[c - 1] : u1;
       const float sh2 = c ? dm2[c - 1] : u2;
       const float best = fminf(fminf(sh1, dm1[c]), sh2);
-      dk[c] = fminf(__fadd_rn(cst, best), kInf);
+      dk[c] = ok ? fminf(__fadd_rn(acc, best), kInf) : kInf;
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -180,13 +268,24 @@ int wavefront_wide(const float* X, const float* Y, int P, int T, int d,
   return (int)cudaGetLastError();
 }
 
+template <int C, int D>
+int wavefront_cd(const float* X, const float* Y, int P, int T, int radius,
+                 float* out, cudaStream_t stream) {
+  const long long grid = ((long long)P + kWarps - 1) / kWarps;
+  wavefront_kernel<C, D><<<dim3((unsigned)grid), dim3(kWarps * 32), 0,
+                           stream>>>(X, Y, P, T, radius, out);
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int wavefront_c(const float* X, const float* Y, int P, int T, int d,
                 int radius, float* out, cudaStream_t stream) {
-  const long long grid = ((long long)P + kWarps - 1) / kWarps;
-  wavefront_kernel<C><<<dim3((unsigned)grid), dim3(kWarps * 32), 0,
-                        stream>>>(X, Y, P, T, d, radius, out);
-  return (int)cudaGetLastError();
+  switch (d) {
+    case 1: return wavefront_cd<C, 1>(X, Y, P, T, radius, out, stream);
+    case 2: return wavefront_cd<C, 2>(X, Y, P, T, radius, out, stream);
+    case 3: return wavefront_cd<C, 3>(X, Y, P, T, radius, out, stream);
+    default: return wavefront_cd<C, 4>(X, Y, P, T, radius, out, stream);
+  }
 }
 
 // ---------------------------------------------------------------- K6 ----
@@ -406,6 +505,180 @@ int banded_gc(const float* A, const float* B, int Na, int Nb, int gram,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- K6, one thread per pair ----
+//
+// For strips of 2w+1 <= 64 cells. One thread owns one pair and holds the
+// strip row, padded to WP (the power of two >= 2w+1; 2w+1 is odd, so WP
+// is 1, 4, 8, 16, 32 or 64), in registers: m[] the row D_t, s[] the costs
+// and then the scan's running sums. The block's 128 pairs have their y
+// rows staged into shared memory, ``rows`` strip rows at a time.
+
+constexpr int kThreadPairs = 128;          // pairs (threads) per block
+constexpr int kPitch = kThreadPairs + 1;   // floats per staged y row
+
+// Stages y rows j = j0 .. j0 + R - 1 of the block's pairs: slot sl's row jj,
+// channel ch at ys[(ch * Rmax + jj) * kPitch + sl], +INF outside [0, T). A
+// row with any channel >= INF (or NaN) gets +INF in channel 0, so that
+// channel 0 alone carries the reference's pad test (ysl < INF on every
+// channel). Each warp copies whole rows, its lanes over j (coalesced); the
+// odd pitch puts the 32 lanes' stores in 32 banks.
+__device__ __forceinline__ void stage_strip_rows(
+    const float* __restrict__ B, long long p0, long long P, int Nb,
+    int gram, int T, int d, int j0, int R, int Rmax, float* ys) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int sl = warp; sl < kThreadPairs; sl += kThreadPairs / 32) {
+    const long long q = p0 + sl < P ? p0 + sl : P - 1;
+    const float* src = B + (gram ? q % Nb : q) * T * d;
+    for (int jj = lane; jj < R; jj += 32) {
+      const int j = j0 + jj;
+      const bool in = j >= 0 && j < T;
+      bool bad = !in;
+      for (int ch = 0; ch < d; ++ch) {
+        const float v = in ? __ldg(src + (size_t)j * d + ch) : kInf;
+        bad = bad || !(v < kInf);
+        ys[((size_t)ch * Rmax + jj) * kPitch + sl] = v;
+      }
+      if (bad) ys[(size_t)jj * kPitch + sl] = kInf;
+    }
+  }
+}
+
+// a == b ? x : y, opaque to the compiler: a select over every cell of a
+// register row by one run-time index (u == w) can otherwise be folded into
+// an indexed access, which moves the row to local memory
+__device__ __forceinline__ float pick(int a, int b, float x, float y) {
+  float r;
+  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\t"
+      "selp.f32 %0, %3, %4, p;\n\t}"
+      : "=f"(r) : "r"(a), "r"(b), "f"(x), "f"(y));
+  return r;
+}
+
+// The scan's levels DD, 2 DD, .. < WP over cells u >= DD, u running down
+// so that every level reads the previous level's values (see below).
+template <int WP, int DD>
+__device__ __forceinline__ void scan_levels(float (&m)[WP], float (&s)[WP]) {
+#pragma unroll
+  for (int u = WP - 1; u >= DD; --u) {
+    m[u] = fminf(m[u], __fadd_rn(m[u - DD], s[u]));
+    s[u] = fminf(__fadd_rn(s[u - DD], s[u]), kInf);
+  }
+  if constexpr (2 * DD < WP) scan_levels<WP, 2 * DD>(m, s);
+}
+
+template <int WP>
+__global__ void __launch_bounds__(kThreadPairs)
+banded_thread_kernel(const float* __restrict__ A,
+                     const float* __restrict__ B, int Na, int Nb, int gram,
+                     int T, int d, int w, int rows,
+                     float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int slot = threadIdx.x;
+  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  const long long p0 = (long long)blockIdx.x * kThreadPairs;
+  // the block's tail past the last pair sweeps the last pair again, so
+  // that every thread meets the staging barriers
+  const long long q = p0 + slot < P ? p0 + slot : P - 1;
+  const float* x = A + (gram ? q / Nb : q) * T * d;
+  const int W = 2 * w + 1;
+  const int Rmax = rows + WP - 1;
+  // a cell whose y fails the pad test: +INF at once for one channel; for
+  // several, a -INF mark that the channel sums keep negative (or NaN) and
+  // the last pass turns into +INF
+  const float miss = d == 1 ? kInf : __int_as_float(0xff800000);
+  float m[WP], s[WP];
+  for (int t0 = 0; t0 < T; t0 += rows) {
+    const int nr = min(rows, T - t0);
+    __syncthreads();   // the previous chunk's rows have been read
+    stage_strip_rows(B, p0, P, Nb, gram, T, d, t0 - w, nr + WP - 1, Rmax,
+                     smem);
+    __syncthreads();
+#pragma unroll 1
+    for (int tt = 0; tt < nr; ++tt) {
+      const int t = t0 + tt;
+      // strip cell u of row t is y row j = t - w + u: staged row tt + u
+      const float* yr = smem + (size_t)tt * kPitch + slot;
+      const float x0 = __ldg(x + (size_t)t * d);
+#pragma unroll
+      for (int u = 0; u < WP; ++u) {
+        const float yv = yr[u * kPitch];
+        const float df = __fsub_rn(x0, yv);
+        // cells u >= W pad the row to WP: +INF, so that D_t[W] (the top
+        // neighbour of u = W - 1) is +INF as past the reference's strip;
+        // u <= WP / 2 is always < W
+        const bool ok = yv < kInf && (u <= WP / 2 || u < W);
+        s[u] = ok ? __fmul_rn(df, df) : miss;
+      }
+      if (d > 1) {
+        for (int ch = 1; ch < d; ++ch) {
+          const float xc = __ldg(x + (size_t)t * d + ch);
+          const float* yc = yr + (size_t)ch * Rmax * kPitch;
+#pragma unroll
+          for (int u = 0; u < WP; ++u) {
+            const float df = __fsub_rn(xc, yc[u * kPitch]);
+            s[u] = __fadd_rn(s[u], __fmul_rn(df, df));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < WP; ++u) s[u] = s[u] >= 0.f ? s[u] : kInf;
+      }
+      if (t == 0) {
+        // only cell (0, 0) (u = w) starts a path
+#pragma unroll
+        for (int u = 0; u < WP; ++u) m[u] = pick(u, w, s[u], kInf);
+      } else {
+        // m[u] still holds D_{t-1}[u]; the top neighbour D_{t-1}[u+1] is
+        // read before it is overwritten
+#pragma unroll
+        for (int u = 0; u < WP; ++u) {
+          const float top = u + 1 < WP ? m[u + 1] : kInf;
+          m[u] = __fadd_rn(s[u], fminf(top, m[u]));
+        }
+      }
+      // Hillis-Steele min-plus scan, the association of
+      // spdtw_block._minplus_scan_lanes: m = min(m, m_sh + s) with the old
+      // s, then s = min(s_sh + s, INF) (``scan_levels``). The levels
+      // dd < WP are the reference's dd < W, WP being the least power of
+      // two >= W. For u < dd the reference's terms are identities:
+      // m = min(m, INF + s) keeps m, because m <= c + INF <= INF + s holds
+      // at every level (s only grows, and costs are at most INF), and
+      // s = min(0 + s, INF) keeps s <= INF; so they are skipped. The scan
+      // is a prefix: cells u < W never read the padding u >= W.
+      if constexpr (WP > 1) scan_levels<WP, 1>(m, s);
+      // row 0 is not clamped (the reference's), later rows are
+      if (t > 0) {
+#pragma unroll
+        for (int u = 0; u < WP; ++u) m[u] = fminf(m[u], kInf);
+      }
+    }
+  }
+  float res = kInf;
+#pragma unroll
+  for (int u = 0; u < WP; ++u) res = pick(u, w, m[u], res);
+  if (p0 + slot < P) out[p0 + slot] = res;
+}
+
+template <int WP>
+int banded_thread(const float* A, const float* B, int Na, int Nb, int gram,
+                  int T, int d, int w, int rows, float* out,
+                  cudaStream_t stream) {
+  const size_t smem = (size_t)(rows + WP - 1) * d * kPitch * 4;
+  if (rows < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        banded_thread_kernel<WP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  const long long grid = (P + kThreadPairs - 1) / kThreadPairs;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  banded_thread_kernel<WP><<<dim3((unsigned)grid), dim3(kThreadPairs), smem,
+                             stream>>>(A, B, Na, Nb, gram, T, d, w, rows,
+                                       out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -417,36 +690,55 @@ int dtw_wavefront(const float* X, const float* Y, int P, int T, int d,
   cudaStream_t st = (cudaStream_t)stream;
   const int per_lane = (T + 31) / 32;
   if (T < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  if (d > kRegChannels || per_lane > 16)
+    return wavefront_wide(X, Y, P, T, d, radius, out, st);
   if (per_lane <= 1) return wavefront_c<1>(X, Y, P, T, d, radius, out, st);
   if (per_lane <= 2) return wavefront_c<2>(X, Y, P, T, d, radius, out, st);
   if (per_lane <= 4) return wavefront_c<4>(X, Y, P, T, d, radius, out, st);
   if (per_lane <= 8) return wavefront_c<8>(X, Y, P, T, d, radius, out, st);
-  if (per_lane <= 16) return wavefront_c<16>(X, Y, P, T, d, radius, out, st);
-  return wavefront_wide(X, Y, P, T, d, radius, out, st);
+  return wavefront_c<16>(X, Y, P, T, d, radius, out, st);
 }
 
 // Sakoe-Chiba DTW of half-width w in the slanted strip. gram != 0: the
 // (Na, Nb) grid of A rows x B rows; gram == 0: the (Na,) aligned pairs
-// (A row p, B row p). A (Na, T, d), B (Nb, T, d). Strips of 2w+1 <= 256
-// run the register templates; wider ones the shared-memory sweep, with
-// ``warps`` pairs per block (``dtw_banded.banded_geometry``).
+// (A row p, B row p). A (Na, T, d), B (Nb, T, d). ``route`` picks the
+// template (``dtw_banded.banded_geometry``): 0 "lanes" (2w+1 <= 256),
+// 1 "thread" (2w+1 <= 64; ``param`` strip rows staged at a time), 2
+// "wide" (any width; ``param`` pairs per block).
 int dtw_banded(const float* A, const float* B, int Na, int Nb, int gram,
-               int T, int d, int w, int warps, float* out, void* stream) {
+               int T, int d, int w, int route, int param, float* out,
+               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int W = 2 * w + 1;
   if (T < 1 || d < 1 || w < 0) return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+#define THREAD(WP) \
+  banded_thread<WP>(A, B, Na, Nb, gram, T, d, w, param, out, st)
+    if (W <= 1) return THREAD(1);
+    if (W <= 4) return THREAD(4);
+    if (W <= 8) return THREAD(8);
+    if (W <= 16) return THREAD(16);
+    if (W <= 32) return THREAD(32);
+    if (W <= 64) return THREAD(64);
+#undef THREAD
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == 0) {
 #define BANDED(G, C) banded_gc<G, C>(A, B, Na, Nb, gram, T, d, w, out, st)
-  if (W <= 1) return BANDED(1, 1);
-  if (W <= 2) return BANDED(2, 1);
-  if (W <= 4) return BANDED(4, 1);
-  if (W <= 8) return BANDED(8, 1);
-  if (W <= 16) return BANDED(16, 1);
-  if (W <= 32) return BANDED(32, 1);
-  if (W <= 64) return BANDED(32, 2);
-  if (W <= 128) return BANDED(32, 4);
-  if (W <= 256) return BANDED(32, 8);
+    if (W <= 1) return BANDED(1, 1);
+    if (W <= 4) return BANDED(4, 1);
+    if (W <= 8) return BANDED(8, 1);
+    if (W <= 16) return BANDED(16, 1);
+    if (W <= 32) return BANDED(32, 1);
+    if (W <= 64) return BANDED(32, 2);
+    if (W <= 128) return BANDED(32, 4);
+    if (W <= 256) return BANDED(32, 8);
 #undef BANDED
-  return banded_wide(A, B, Na, Nb, gram, T, d, w, warps, out, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == 2)
+    return banded_wide(A, B, Na, Nb, gram, T, d, w, param, out, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

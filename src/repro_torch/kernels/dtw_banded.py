@@ -15,8 +15,12 @@ PyTorch, scan association included. K6 (``dtw_banded`` in
 ``csrc/dtw_wavefront.cu``) repeats it too, so the two agree bit for bit;
 its entry point takes aligned pairs (``banded_dtw``) or the all-pairs
 grid of two series sets (``banded_dtw_gram``, the ``dtw_sc`` Gram), which
-it never expands into a pair batch. Series may be (B, T) or (B, T, d);
-the cost sums the channels left to right.
+it never expands into a pair batch. It has three launch templates, which
+``banded_geometry`` picks from the strip's width and every one of which
+gives the same bits: one thread per pair with the row in registers up to
+64 cells ("thread"), a lane group per pair up to 256 ("lanes"), and the
+strip in shared memory beyond ("wide"). Series may be (B, T) or
+(B, T, d); the cost sums the channels left to right.
 """
 from __future__ import annotations
 
@@ -26,37 +30,86 @@ from . import _build
 from .dtw_wavefront import _as_channels
 from .spdtw_block import INF, _check_operand, _minplus_scan_lanes, _stream_ptr
 
-# widest strip K6's register templates take (2w + 1 <= 256); wider strips
-# run its shared-memory sweep
-REG_WIDTH = 256
+# K6's templates (``banded_geometry``): "thread" up to THREAD_WIDTH cells,
+# "lanes" up to LANES_WIDTH, "wide" at any width
+TEMPLATES = ("auto", "thread", "lanes", "wide")
+_ROUTE = {"lanes": 0, "thread": 1, "wide": 2}
+THREAD_WIDTH = 64
+LANES_WIDTH = 256
 SMEM_MAX = 232448
+# the thread template: pairs (threads) per block and the floats of one
+# staged y row (``kThreadPairs``, ``kPitch``); a chunk of strip rows is
+# staged at a time, as many as THREAD_SMEM bytes hold but at least WP
+THREAD_PAIRS = 128
+_PITCH = THREAD_PAIRS + 1
+THREAD_SMEM = 48 * 1024
 # pairs (warps) per block of the shared-memory sweep, at most
 WIDE_WARPS = 4
 
 
-def banded_geometry(radius: int) -> dict:
-    """How K6 sweeps a strip of 2w+1 cells: ``lanes`` per pair (G),
-    ``cells`` per lane (C), ``pairs_per_block``, ``smem_bytes`` of a block
-    and ``wide`` (the shared-memory sweep, one warp per pair, for 2w+1 >
-    256). Mirrors ``dtw_banded`` in ``csrc/dtw_wavefront.cu``."""
+def _pow2(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def _thread_launch(W: int, T: int, d: int):
+    """(rows, smem_bytes) of the thread template for a W-cell strip, or
+    None where not one row's staging fits the card."""
+    WP = _pow2(W)
+    per_row = d * _PITCH * 4
+    rows = min(T, max(WP, THREAD_SMEM // per_row - (WP - 1)))
+    if (rows + WP - 1) * per_row > SMEM_MAX:
+        rows = SMEM_MAX // per_row - (WP - 1)
+    if rows < 1:
+        return None
+    return rows, (rows + WP - 1) * per_row
+
+
+def banded_geometry(radius: int, T: int = 128, d: int = 1,
+                    template: str = "auto") -> dict:
+    """How K6 sweeps a strip of W = 2w+1 cells over T rows of d channels.
+    Mirrors ``dtw_banded`` in ``csrc/dtw_wavefront.cu``.
+
+    "thread" (W <= 64): one thread per pair, the row padded to ``cells``
+    = WP (the least power of two >= W) in registers, the y rows staged in
+    chunks of ``rows``. "lanes" (W <= 256): ``lanes`` (G) per pair,
+    ``cells`` (C) per lane. "wide": one warp per pair, the strip in
+    shared memory. "auto" takes the first that fits, in that order.
+    Returns template, wide, lanes, cells, pairs_per_block, rows,
+    smem_bytes (a block's) and reg_floats (the register arrays of a
+    thread)."""
+    if template not in TEMPLATES:
+        raise ValueError(f"template {template!r} not in {TEMPLATES}")
     W = 2 * int(radius) + 1
-    if W <= REG_WIDTH:
-        G = 1
-        while G < min(W, 32):
-            G *= 2
-        C = -(-W // G)
-        C = 1 << (C - 1).bit_length()
+    if template in ("auto", "thread") and W <= THREAD_WIDTH:
+        launch = _thread_launch(W, int(T), int(d))
+        if launch is not None:
+            rows, smem = launch
+            return {"template": "thread", "wide": False, "lanes": 1,
+                    "cells": _pow2(W), "pairs_per_block": THREAD_PAIRS,
+                    "rows": rows, "smem_bytes": smem,
+                    "reg_floats": 2 * _pow2(W)}
+    if template == "thread":
+        raise ValueError(f"the thread template does not take radius "
+                         f"{radius} at d = {d}")
+    if template in ("auto", "lanes") and W <= LANES_WIDTH:
+        G = min(_pow2(W), 32)
+        C = _pow2(-(-W // G))
         ppb = 4 * (32 // G)
-        return {"wide": False, "lanes": G, "cells": C,
-                "pairs_per_block": ppb,
-                "smem_bytes": ppb * 3 * C * G * 4 if C > 1 else 0}
+        return {"template": "lanes", "wide": False, "lanes": G, "cells": C,
+                "pairs_per_block": ppb, "rows": 0,
+                "smem_bytes": ppb * 3 * C * G * 4 if C > 1 else 0,
+                "reg_floats": 4 * C}
+    if template == "lanes":
+        raise ValueError(f"the lanes template takes 2w + 1 <= {LANES_WIDTH}"
+                         f", got radius {radius}")
     per = 5 * W * 4         # the previous row and the scan's m, s (x2)
     warps = min(WIDE_WARPS, SMEM_MAX // per)
     if warps < 1:
         raise ValueError(f"radius {radius}: the strip's shared memory "
                          f"({per} bytes) exceeds the card's {SMEM_MAX}")
-    return {"wide": True, "lanes": 32, "cells": -(-W // 32),
-            "pairs_per_block": warps, "smem_bytes": warps * per}
+    return {"template": "wide", "wide": True, "lanes": 32,
+            "cells": -(-W // 32), "pairs_per_block": warps, "rows": 0,
+            "smem_bytes": warps * per, "reg_floats": 0}
 
 
 def banded_dtw_plain(x: torch.Tensor, y: torch.Tensor,
@@ -111,10 +164,11 @@ def banded_dtw_gram_plain(A: torch.Tensor, B: torch.Tensor, radius: int,
 
 
 def dtw_banded_cuda(A: torch.Tensor, B: torch.Tensor, radius: int, *,
-                    gram: bool) -> torch.Tensor:
+                    gram: bool, template: str = "auto") -> torch.Tensor:
     """Launch K6 on A (Na, T, d), B (Nb, T, d) float32, contiguous, on one
     CUDA device: the (Na, Nb) Gram when ``gram``, else the (Na,) aligned
-    pairs (A[p], B[p]). Returns on the current stream, without
+    pairs (A[p], B[p]). ``template`` as in ``banded_geometry``; every
+    template gives the same bits. Returns on the current stream, without
     synchronising."""
     dev = A.device
     if dev.type != "cuda":
@@ -123,7 +177,7 @@ def dtw_banded_cuda(A: torch.Tensor, B: torch.Tensor, radius: int, *,
     Nb = B.shape[0]
     if not gram and Nb != Na:
         raise ValueError(f"aligned pairs need equal counts, got {Na}, {Nb}")
-    geo = banded_geometry(radius)
+    geo = banded_geometry(radius, T, d, template)
     _check_operand("A", A, (Na, T, d), dev)
     _check_operand("B", B, (Nb, T, d), dev)
     out = torch.empty((Na, Nb) if gram else (Na,), dtype=torch.float32,
@@ -131,9 +185,11 @@ def dtw_banded_cuda(A: torch.Tensor, B: torch.Tensor, radius: int, *,
     if out.numel() == 0:
         return out
     lib = _build.library("dtw_wavefront")
+    param = {"thread": geo["rows"], "lanes": 0,
+             "wide": geo["pairs_per_block"]}[geo["template"]]
     rc = lib.dtw_banded(A.data_ptr(), B.data_ptr(), Na, Nb, int(gram), T, d,
-                        int(radius), geo["pairs_per_block"] if geo["wide"]
-                        else 0, out.data_ptr(), _stream_ptr(dev))
+                        int(radius), _ROUTE[geo["template"]], param,
+                        out.data_ptr(), _stream_ptr(dev))
     _build.LAUNCHES["dtw_banded"] += 1
     _build.check(rc, "dtw_banded")
     return out

@@ -3,7 +3,8 @@ CPU.
 
 The K3 / K4 sweeps visit only the hull [lo_k, lo_k + width_k) of each
 anti-diagonal's admissible positions, K1 / K2 run one thread per pair for
-tiles of 8-32, and K6 sweeps strips wider than 256 cells through shared
+tiles of 8-32, and K6 runs one thread per pair for strips of up to 64
+cells, a lane group per pair up to 256 and wider strips through shared
 memory. Each picks its template from a pure-Python helper
 (``krdtw_geometry``, ``tile_geometry``, ``banded_geometry``); these tests
 hold the helpers to the support they are given and to the card's 232,448
@@ -21,6 +22,9 @@ from repro_torch.kernels import krdtw_wavefront as t_k4
 from repro_torch.kernels.spdtw_block import tile_geometry
 
 SMEM_MAX = 232448
+# floats a thread may hold in register arrays (the card's 255 registers,
+# less room for addresses, counters and the cost's temporaries)
+REG_FLOATS_MAX = 160
 
 
 def _path_support(T, n_paths, seed):
@@ -155,9 +159,72 @@ def test_banded_geometry_fits_the_card(W):
     assert geo["lanes"] * geo["cells"] >= W
     assert geo["smem_bytes"] <= SMEM_MAX
     assert geo["wide"] == (W > 256)
+    assert geo["template"] == ("thread" if W <= 64 else
+                               "lanes" if W <= 256 else "wide")
+    if geo["template"] == "thread":
+        # one thread per pair, the row padded to a power of two
+        assert geo["lanes"] == 1 and geo["cells"] < 2 * W
     if geo["wide"]:
         assert geo["lanes"] == 32 and 1 <= geo["pairs_per_block"] <= 4
         assert geo["smem_bytes"] == geo["pairs_per_block"] * 5 * W * 4
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_banded_geometry_takes_the_thread_template_up_to_64_cells(d):
+    for w in range(0, 513):
+        W = 2 * w + 1
+        geo = t_k6.banded_geometry(w, 128, d)
+        want = "thread" if W <= 64 else "lanes" if W <= 256 else "wide"
+        assert geo["template"] == want, w
+        assert geo["wide"] == (want == "wide")
+        assert geo["lanes"] * geo["cells"] >= W
+        assert geo["smem_bytes"] <= SMEM_MAX
+        assert geo["reg_floats"] <= REG_FLOATS_MAX
+        if want == "thread":
+            WP = geo["cells"]
+            assert WP >= W and WP // 2 < W and WP & (WP - 1) == 0
+            assert geo["lanes"] == 1 and geo["pairs_per_block"] == 128
+            assert 1 <= geo["rows"] <= 128
+            assert geo["smem_bytes"] == \
+                (geo["rows"] + WP - 1) * d * 129 * 4
+
+
+@pytest.mark.parametrize("T", [1, 5, 24, 128, 129, 1024, 2709])
+def test_thread_template_stages_at_least_one_strip_width_of_rows(T):
+    """A chunk of staged rows spans at least min(T, WP) strip rows at
+    d <= 3 (so no row is staged more than twice), and never more than
+    the series has."""
+    for w in (0, 3, 13, 26, 31):
+        for d in (1, 2, 3):
+            geo = t_k6.banded_geometry(w, T, d)
+            assert geo["template"] == "thread"
+            assert min(T, geo["cells"]) <= geo["rows"] <= T
+
+
+def test_thread_template_gives_way_where_its_staging_cannot_fit():
+    """At many channels one strip row's staging outgrows the card's
+    shared memory: "auto" takes the lanes template, a forced "thread"
+    raises."""
+    assert t_k6.banded_geometry(26, 128, 7)["template"] == "thread"
+    geo = t_k6.banded_geometry(26, 128, 8)
+    assert geo["template"] == "lanes" and geo["smem_bytes"] <= SMEM_MAX
+    with pytest.raises(ValueError, match="thread"):
+        t_k6.banded_geometry(26, 128, 8, template="thread")
+    with pytest.raises(ValueError, match="thread"):
+        t_k6.banded_geometry(32, 128, 1, template="thread")
+    with pytest.raises(ValueError, match="lanes"):
+        t_k6.banded_geometry(128, 128, 1, template="lanes")
+    with pytest.raises(ValueError, match="template"):
+        t_k6.banded_geometry(3, 128, 1, template="pairs")
+
+
+@pytest.mark.parametrize("template", ["thread", "lanes", "wide"])
+def test_forced_templates_report_their_own_launch(template):
+    geo = t_k6.banded_geometry(26, 128, 1, template=template)
+    assert geo["template"] == template
+    assert geo["wide"] == (template == "wide")
+    assert geo["lanes"] == {"thread": 1, "lanes": 32,
+                            "wide": 32}[template]
 
 
 def test_wide_strip_plain_matches_reference():
