@@ -14,14 +14,16 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    - K2 (``spdtw_tiles_paired``) against ``spdtw_paired_scan``, K1
      (``spdtw_tiles_gram``: plain, thresholded with ``alive0``, prefix
      mode) against ``gram_spdtw_scan`` / ``gram_prefix_bound``, for every
-     tile edge S, d in {1, 3}, random sparse supports and a learned one;
+     tile edge S, d in {1, 3}, random sparse supports and a learned one,
+     and at T = 60 and 96 on their default tiles;
    - K3 (``krdtw_gram``) and K4 (``krdtw_paired``) against
      ``gram_log_krdtw_plain`` / ``wavefront_log_krdtw_plain`` at T in
-     {24, 100, 128, 300, 1024}, nu in {0.1, 0.5, 2}, on the full grid, a
-     corridor and a support; K3 and K4 must agree bit for bit;
+     {24, 60, 96, 100, 128, 300, 1024}, nu in {0.1, 0.5, 2}, on the full
+     grid, a corridor and a support; K3 and K4 must agree bit for bit;
    - K5 (``dtw_wavefront``) and K6 (``dtw_banded``, pairs and Gram) against
      ``wavefront_dtw_plain`` / ``banded_dtw_plain`` over the radius grid
-     up to w = 26, at d in {1, 3}, and K6 at T = 1024, w = 204; then at
+     up to w = 26, at d in {1, 3} and T in {24, 60, 96, 100, 128, 300},
+     and K6 at T = 1024, w = 204; then at
      every template boundary: K6 at 2w + 1 in {1, 3, 7, 15, 31, 33, 63,
      65, 255, 257} and T in {5, 24, 128, 129}, each template that takes
      the width forced, and K5 at T in {1, 2, 31, 33, 128, 129, 512, 513}.
@@ -68,10 +70,31 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    64 rows, gw zero outside the support; K8 / K9 in paired mode at the
    fit's shapes under both templates, with their wrappers' and bare
    launches' times.
+3d. The paper's tables (the protocol of ``benchmarks/common.py`` and
+   ``benchmarks/table{2,4,6}*.py``, through the port's public API:
+   ``paper_tables``). Equality pass: each of the seven synthetic
+   datasets at its generator's default size (T = 60, 96, 100, 128);
+   its selected radius, SP-DTW theta / gamma, nu and SP-K_rdtw theta,
+   the LOO errors, the eight Table II 1-NN errors, the four Table IV
+   SVM errors, the visited cells of every measure and the active tiles
+   at tile 16 must equal the reference's values in
+   ``tests/torch_tables_reference.json`` (made on the CPU by
+   ``tools/paper_tables_reference.py``); then the mean ranks and
+   Wilcoxon p-values. Timed pass: the same protocol on the TwoPatterns
+   1000 / 4000 split, each stage timed; the spdtw and dtw ``cross``
+   argmins must equal ``engine.knn``'s neighbours bit for bit.
+3e. The sketch tier on phase 3's engine: ``sketch_r`` in {8, 16, 32},
+   ``knn(mode="sketch")`` at top_c in {8, 16, 32, 64, N} and
+   ``approx=True`` (K1 embeddings, K2 seed and re-rank), recall@1
+   against phase 3's neighbours, the stage times; one soft embedding
+   (gamma 0.1, K7); ``svm_rws_series`` at R = 32. At top_c = N the
+   neighbours must equal the exact cascade's bit for bit, recall@1 must
+   not fall as top_c grows, and the card's features must equal the same
+   call on the CPU (rel 1e-6; 1e-5 for the soft ones).
    For each path the launch counters are set to 0 just before and read
    just after, and each of its kernels must have launched. Then a
    torch.profiler pass gives the device time by kernel and the device's
-   idle share for calls of both paths.
+   idle share for calls of the paths.
 4. Timing at the paths' shapes: each kernel against its plain version,
    with its bound (K8 / K9 as their bare launches' device time, with the
    template each launch takes); K6 at each ``select_radius`` width under
@@ -317,9 +340,11 @@ def phase_kernels():
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     worst = {k: [0.0, 0.0] for k in KERNELS}
-    cases = [(8, 1, 70), (8, 3, 70), (16, 1, 100), (16, 3, 100),
-             (32, 1, 150), (32, 3, 150), (64, 1, 150), (128, 1, 200),
-             (128, 3, 200)]
+    # T = 60 and 96 on their default tiles (8, padded to 64; 16): the
+    # lengths of the paper tables' datasets
+    cases = [(8, 1, 60), (8, 1, 70), (8, 3, 70), (16, 1, 96), (16, 1, 100),
+             (16, 3, 100), (32, 1, 150), (32, 3, 150), (64, 1, 150),
+             (128, 1, 200), (128, 3, 200)]
     for S, d, T in cases:
         bsp = block_sparsify(_random_support(T, seed=S + d), tile=S)
         shape = (lambda n: (n, T)) if d == 1 else (lambda n: (n, T, d))
@@ -359,9 +384,9 @@ def _band_support(T, seed):
 
 def _check_slice2():
     """K3 / K4 (log K_rdtw) and K5 / K6 (DTW, DTW_sc) against their plain
-    versions at T in {24, 100, 128, 300}: K3 / K4 for nu in {0.1, 0.5, 2}
-    on the full grid, a corridor and a support (learned from CBF at
-    T = 128); K5 / K6 over the TwoPatterns radius grid up to w = 26, at
+    versions at T in {24, 60, 96, 100, 128, 300}: K3 / K4 for nu in {0.1,
+    0.5, 2} on the full grid, a corridor and a support (learned from CBF
+    at T = 128); K5 / K6 over the TwoPatterns radius grid up to w = 26, at
     d in {1, 3}. Past the old length and width limits, at T = 1024: K3 /
     K4 at nu = 0.5 on the full grid (the wide sweep), the radius-6
     corridor and a band support (the narrow sweep), and K6 at w = 204 (a
@@ -392,7 +417,7 @@ def _check_slice2():
 
     ds = make_cbf(n_train=40, n_test=24, T=128)
     learned = learn_sparse_paths(torch.as_tensor(ds.X_train), theta=2.0)
-    for T in (24, 100, 128, 300, 1024):
+    for T in (24, 60, 96, 100, 128, 300, 1024):
         A = torch.as_tensor(rng.normal(size=(12, T)).astype(np.float32),
                             device=dev)
         B = torch.as_tensor(rng.normal(size=(16, T)).astype(np.float32),
@@ -1189,6 +1214,450 @@ def _check_paired_main(eng, label, gamma):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3d: the paper's tables (benchmarks/common.py's protocol)
+# ---------------------------------------------------------------------------
+
+# the protocol's grids and tables, as benchmarks/common.py DatasetBench and
+# benchmarks/table{2,4,6}*.py
+TABLE_THETAS = (0, 1, 2, 4, 8)
+TABLE_GAMMAS = (0.0, 0.5)
+TABLE_NUS = (0.1, 0.5, 2.0)
+TABLE2 = ("corr", "daco", "euclidean", "dtw", "dtw_sc", "krdtw", "spdtw",
+          "sp_krdtw")
+TABLE4 = ("euclidean_rbf", "krdtw", "krdtw_sc", "sp_krdtw")
+TABLE_TILE = 16
+RBF_GAMMA = 0.1
+# the reference's rows at the generators' default sizes, made on the CPU
+# by tools/paper_tables_reference.py
+TABLES_FIXTURE = "tests/torch_tables_reference.json"
+# the entries of a protocol row held against the fixture
+TABLE_KEYS = ("T", "n_train", "n_test", "n_classes", "radius", "radius_loo",
+              "spdtw_theta", "spdtw_gamma", "spdtw_loo", "nu",
+              "sp_krdtw_theta", "sp_krdtw_loo", "knn_error", "svm_error",
+              "visited_cells", "tile", "active_tiles", "tiles_total")
+TABLES_DEPENDS = ("spdtw_tiles_gram", "spdtw_tiles_paired", "krdtw_gram",
+                  "krdtw_paired", "dtw_wavefront", "dtw_banded")
+
+
+def _rbf_gram(X, Y, gamma=RBF_GAMMA, block=256):
+    """exp(-gamma ||x - y||^2) for all pairs, rows in blocks (the Table IV
+    Euclidean baseline, ``benchmarks/table4_svm.py``)."""
+    import torch
+    return torch.cat([torch.exp(-gamma * torch.sum(
+        (X[s:s + block, None, :] - Y[None, :, :]) ** 2, dim=-1))
+        for s in range(0, X.shape[0], block)])
+
+
+def paper_tables(ds, device, timer=None):
+    """The protocol of ``benchmarks/common.py`` (``DatasetBench``, with
+    Tables II, IV and VI) on one dataset through the port's public API,
+    on ``device``: occupancy counts, ``select_radius``,
+    ``select_theta_gamma`` for spdtw and sp_krdtw, ``select_nu``; the
+    eight 1-NN errors from ``make_measure(...).cross``; the SVM errors of
+    the Euclidean RBF and the three K_rdtw kernels (``gram_log`` and one
+    batched ``logk`` for the self-similarities); visited cells and the
+    active tiles at tile 16. ``timer(name, fn)`` runs each stage (default:
+    just calls it). Returns (row, extras): the row has the keys of
+    ``tools/paper_tables_reference.py``; extras hold the measures and the
+    spdtw / dtw cross matrices."""
+    import torch
+    from repro_torch.classify import (knn_error, select_nu, select_radius,
+                                      select_theta_gamma, svm_error)
+    from repro_torch.core import (block_sparsify, make_measure,
+                                  normalized_gram, pairwise_path_counts)
+    run = timer or (lambda name, fn: fn())
+    Xtr = torch.as_tensor(ds.X_train, device=device)
+    Xte = torch.as_tensor(ds.X_test, device=device)
+    ytr, yte, T = ds.y_train, ds.y_test, ds.T
+    counts = run("pairwise_path_counts", lambda: pairwise_path_counts(Xtr))
+    sel_r = run("select_radius (K6)",
+                lambda: select_radius(Xtr, ytr, device=device))
+    sel_sp = run("select_theta_gamma spdtw (K1)",
+                 lambda: select_theta_gamma(
+                     Xtr, ytr, name="spdtw", counts=counts,
+                     thetas=TABLE_THETAS, gammas=TABLE_GAMMAS,
+                     device=device))
+    nu = run("select_nu krdtw (K3)",
+             lambda: select_nu(Xtr, ytr, name="krdtw", grid=TABLE_NUS,
+                               device=device)).nu
+    sel_spk = run("select_theta_gamma sp_krdtw (K3)",
+                  lambda: select_theta_gamma(
+                      Xtr, ytr, name="sp_krdtw", counts=counts,
+                      thetas=TABLE_THETAS, nu=nu, device=device))
+
+    def measure(name):
+        sp = {"spdtw": sel_sp.sp, "sp_krdtw": sel_spk.sp}.get(name)
+        return make_measure(name, T, sp=sp, nu=nu, radius=sel_r.radius,
+                            device=device)
+
+    measures = {m: measure(m) for m in TABLE2 + ("krdtw_sc",)}
+    knn, crosses = {}, {}
+    for m in TABLE2:
+        C = run(f"Table II cross {m}",
+                lambda m=m: measures[m].cross(Xte, Xtr))
+        knn[m] = knn_error(C, ytr, yte)
+        if m in ("spdtw", "dtw"):
+            crosses[m] = C
+    svm = {"euclidean_rbf": run("Table IV euclidean_rbf Grams + svm_error",
+                                lambda: svm_error(
+                                    _rbf_gram(Xtr, Xtr), _rbf_gram(Xte, Xtr),
+                                    ytr, yte, ds.n_classes))}
+    for m in TABLE4[1:]:
+        msr = measures[m]
+
+        def grams(msr=msr):
+            lg_tt = msr.gram_log(Xtr, Xtr)
+            lg_et = msr.gram_log(Xte, Xtr)
+            d_tt = torch.diagonal(lg_tt)
+            d_ee = msr.logk(Xte, Xte)
+            return (normalized_gram(lg_tt, d_tt, d_tt),
+                    normalized_gram(lg_et, d_ee, d_tt))
+
+        Ktr, Kte = run(f"Table IV {m} Grams (K3) + self-similarities (K4)",
+                       grams)
+        svm[m] = run(f"Table IV {m} svm_error",
+                     lambda: svm_error(Ktr, Kte, ytr, yte, ds.n_classes))
+    bsp = block_sparsify(sel_sp.sp, tile=TABLE_TILE)
+    row = {"T": int(T), "n_train": len(ds.X_train),
+           "n_test": len(ds.X_test), "n_classes": int(ds.n_classes),
+           "radius": int(sel_r.radius), "radius_loo": float(sel_r.loo),
+           "spdtw_theta": float(sel_sp.theta),
+           "spdtw_gamma": float(sel_sp.gamma),
+           "spdtw_loo": float(sel_sp.loo), "nu": float(nu),
+           "sp_krdtw_theta": float(sel_spk.theta),
+           "sp_krdtw_loo": float(sel_spk.loo), "knn_error": knn,
+           "svm_error": svm,
+           "visited_cells": {m: int(v.visited_cells)
+                             for m, v in measures.items()},
+           "tile": TABLE_TILE, "active_tiles": int(bsp.n_active),
+           "tiles_total": int(bsp.active.size)}
+    return row, {"measures": measures, "crosses": crosses,
+                 "sel_sp": sel_sp, "Xtr": Xtr, "Xte": Xte}
+
+
+# errors and LOOs are float32 fractions k / n, which the two packages
+# round differently in the last bit (XLA's mean multiplies by 1 / n): two
+# values within FRACTION_ATOL are the same fraction for any n <= 10^5
+FRACTION_ATOL = 1e-6
+
+
+def _same(g, w) -> bool:
+    if isinstance(w, float) and isinstance(g, (int, float)):
+        return abs(g - w) <= FRACTION_ATOL
+    return g == w
+
+
+def compare_rows(got, want):
+    """The entries of TABLE_KEYS where a protocol row differs from the
+    reference's, as "key: got != want" strings (every count and selection
+    equal; errors and LOOs the same fraction, within FRACTION_ATOL)."""
+    bad = []
+    for k in TABLE_KEYS:
+        g, w = got.get(k), want.get(k)
+        if isinstance(w, dict):
+            g = g or {}
+            bad += [f"{k}.{m}: {g.get(m)} != {w[m]}"
+                    for m in w if not _same(g.get(m), w[m])]
+        elif not _same(g, w):
+            bad.append(f"{k}: {g} != {w}")
+    return bad
+
+
+def mean_ranks(mat, names):
+    """Mean rank of each column over the rows of an error matrix, ties
+    taking their average rank (``benchmarks/table2_knn.py``)."""
+    import numpy as np
+    ranks = np.argsort(np.argsort(mat, axis=1), axis=1) + 1.0
+    for i in range(mat.shape[0]):
+        for v in np.unique(mat[i]):
+            sel = mat[i] == v
+            if sel.sum() > 1:
+                ranks[i, sel] = ranks[i, sel].mean()
+    return {m: float(r) for m, r in zip(names, ranks.mean(axis=0))}
+
+
+def wilcoxon_signed_rank(a, b) -> float:
+    """Two-sided Wilcoxon signed-rank p-value (normal approximation), as
+    ``benchmarks/common.py`` computes it: zeros dropped, ties averaged,
+    1.0 below six nonzero differences."""
+    import numpy as np
+    from math import erf, sqrt
+    d = np.asarray(a, float) - np.asarray(b, float)
+    d = d[d != 0]
+    n = len(d)
+    if n < 6:
+        return 1.0
+    ranks = np.argsort(np.argsort(np.abs(d))) + 1.0
+    order = np.abs(d)
+    for v in np.unique(order):
+        sel = order == v
+        if sel.sum() > 1:
+            ranks[sel] = ranks[sel].mean()
+    w = min(ranks[d > 0].sum(), ranks[d < 0].sum())
+    mu = n * (n + 1) / 4
+    sigma = np.sqrt(n * (n + 1) * (2 * n + 1) / 24)
+    z = (w - mu + 0.5) / sigma
+    p = 2 * 0.5 * (1 + erf(z / sqrt(2)))
+    return min(max(p, 0.0), 1.0)
+
+
+def _summary(rows, names, key):
+    """Mean ranks and pairwise Wilcoxon p-values of one table."""
+    import numpy as np
+    mat = np.array([[rows[d][key][m] for m in names] for d in rows])
+    wil = {f"{a}|{b}": wilcoxon_signed_rank(mat[:, i], mat[:, j])
+           for i, a in enumerate(names) for j, b in enumerate(names)
+           if j > i}
+    return mean_ranks(mat, names), wil
+
+
+def phase_tables(main):
+    """The paper's tables through the port. Equality pass: each of the
+    seven datasets at its generator's default size through
+    ``paper_tables``, every selection, error, visited-cell and
+    active-tile count equal to the reference's fixture; then the mean
+    ranks and Wilcoxon p-values of Tables II and IV. Timed pass: the same
+    protocol on phase 3's TwoPatterns split (1000 / 4000, T = 128), each
+    stage timed with CUDA events, the spdtw and dtw ``cross`` argmins
+    equal to ``engine.knn``'s neighbours bit for bit, and the dtw nearest
+    distances of ``Measure.pair`` (K5) against the cross minima. Launch
+    counters are set to 0 just before each pass and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import fit
+    from repro_torch.core.spec import MeasureSpec
+    from repro_torch.data import DATASETS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    fixture = json.loads((ROOT / TABLES_FIXTURE).read_text())["datasets"]
+    reset_launch_counts()
+    rows = {}
+    for name, make in DATASETS.items():
+        t0 = time.perf_counter()
+        rows[name], _ = paper_tables(make(), DEVICE)
+        r = rows[name]
+        log(f"  {name} (T={r['T']}, {r['n_train']}/{r['n_test']}, "
+            f"{time.perf_counter() - t0:.1f} s): radius {r['radius']}, "
+            f"spdtw theta {r['spdtw_theta']:g} gamma {r['spdtw_gamma']:g}, "
+            f"nu {r['nu']:g}, sp_krdtw theta {r['sp_krdtw_theta']:g}; "
+            f"1-NN " + " ".join(f"{m} {v:.4f}"
+                                for m, v in r["knn_error"].items())
+            + "; SVM " + " ".join(f"{m} {v:.4f}"
+                                  for m, v in r["svm_error"].items()))
+        cells = r["visited_cells"]
+        T2 = r["T"] ** 2
+        log(f"    Table VI: T^2 {T2}, " + ", ".join(
+            f"{m} {cells[m]} (S {100 * (1 - cells[m] / T2):.1f}%)"
+            for m in ("dtw", "dtw_sc", "spdtw", "sp_krdtw"))
+            + f"; tiles {r['active_tiles']} of {r['tiles_total']} at "
+            f"{TABLE_TILE} (S {100 * (1 - r['active_tiles'] / r['tiles_total']):.1f}%)")
+        bad = compare_rows(r, fixture[name])
+        require(not bad, f"{name} differs from the reference: {bad}")
+    eq_launches = launch_counts()
+    log(f"  every dataset equals the reference's fixture ({TABLES_FIXTURE}): "
+        f"selections, errors, visited cells, active tiles")
+    log(f"  launches on the equality pass: {eq_launches}")
+    for what, names, key in (("Table II", TABLE2, "knn_error"),
+                             ("Table IV", TABLE4, "svm_error")):
+        ranks, wil = _summary(rows, names, key)
+        log(f"  {what} mean ranks: " + ", ".join(
+            f"{m} {v:.2f}" for m, v in ranks.items()))
+        log(f"  {what} Wilcoxon p: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in wil.items()))
+
+    # the timed pass on the main path's split
+    ds = main["ds"]
+    stage = {}
+
+    def timed(name, fn):
+        ms, out = cuda_ms(fn)
+        stage[name] = ms
+        log(f"  {name}: {ms:.1f} ms")
+        return out
+
+    log(f"  timed pass: TwoPatterns {N_TRAIN}/{N_TEST}, T={T_MAIN}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    row, ex = paper_tables(ds, DEVICE, timer=timed)
+    wall = time.perf_counter() - t0
+    Xtr, Xte = ex["Xtr"], ex["Xte"]
+    sel = ex["sel_sp"]
+    seng = fit(MeasureSpec("spdtw", theta=sel.theta,
+                           weight_gamma=sel.gamma), Xtr, sp=sel.sp,
+               device=DEVICE)
+    deng = fit(MeasureSpec("dtw", support="dense"), Xtr, device=DEVICE)
+    for fam, eng in (("spdtw", seng), ("dtw", deng)):
+        nn, _ = timed(f"{fam} engine.knn (the cascade)",
+                      lambda eng=eng: eng.knn(Xte))
+        C = ex["crosses"][fam]
+        require(torch.equal(torch.argmin(C, dim=1).to(torch.int32), nn),
+                f"{fam} cross argmin != engine.knn neighbours")
+        if fam == "dtw":
+            P = timed("dtw Measure.pair on the 4000 neighbour pairs (K5)",
+                      lambda: ex["measures"]["dtw"].pair(Xte,
+                                                         Xtr[nn.long()]))
+            want = C.gather(1, nn[:, None].long())[:, 0]
+            ab, rel = diff(P, want)
+            log(f"  dtw Measure.pair (K5) vs cross minima (K1): max abs "
+                f"{ab:.3g} max rel {rel:.3g}, bit for bit "
+                f"{bool(torch.equal(P, want))}")
+            require(rel <= REL_LIMIT, "K5 pair != K1 cross minimum")
+    launches = launch_counts()
+    log(f"  spdtw and dtw cross argmins == engine.knn neighbours, bit for "
+        f"bit; protocol {wall:.1f} s wall")
+    log(f"  selections {row['radius']} / {row['spdtw_theta']:g} / "
+        f"{row['spdtw_gamma']:g} / {row['nu']:g} / "
+        f"{row['sp_krdtw_theta']:g}; 1-NN " + " ".join(
+            f"{m} {v:.4f}" for m, v in row["knn_error"].items())
+        + "; SVM " + " ".join(f"{m} {v:.4f}"
+                              for m, v in row["svm_error"].items()))
+    log(f"  Table VI: visited {row['visited_cells']}, tiles "
+        f"{row['active_tiles']} of {row['tiles_total']}")
+    log(f"  launches on the timed pass: {launches}")
+    for k in TABLES_DEPENDS:
+        require(launches[k] > 0, f"{k} never launched on the tables' path")
+    return {"rows": rows, "row": row, "launches": launches,
+            "eq_launches": eq_launches, "stages": stage}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: the sketch tier
+# ---------------------------------------------------------------------------
+
+SKETCH_RS = (8, 16, 32)
+SKETCH_TOP_C = (8, 16, 32, 64)          # and the whole corpus
+SKETCH_SOFT_R = 16
+SKETCH_RWS_R = 32
+N_SKETCH_CHECK = 64                      # rows held against the CPU
+SKETCH_DEPENDS = ("spdtw_tiles_gram", "spdtw_tiles_paired",
+                  "soft_tiles_fwd")
+
+
+def phase_sketch(main):
+    """The sketch tier on phase 3's engine: refit with ``sketch_r`` in
+    {8, 16, 32} on its support and plan, ``knn(mode="sketch")`` at top_c
+    in {8, 16, 32, 64, N} and ``approx=True`` for the 4000 queries
+    (recall@1 against phase 3's exact neighbours, time per query, the
+    embed / shortlist / re-rank times, DP pairs); one R = 16 run on the
+    soft embedding (gamma 0.1, K7); ``svm_rws_series`` at R = 32 and its
+    SVM error. Gates: at top_c = N the neighbours and distances equal the
+    exact cascade's bit for bit; recall@1 does not fall as top_c grows;
+    the card's sketch features equal the same call on the CPU to rel 1e-6
+    on 64 rows. Launch counters are set to 0 just before and read just
+    after."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.classify import svm
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.engine import fit
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    eng, ds = main["engine"], main["ds"]
+    exact_nn = main["nn"]
+    exact_d = main["G"].gather(1, exact_nn[:, None].long())[:, 0]
+    Xte = torch.as_tensor(ds.X_test, device=DEVICE)
+    N, B = eng.corpus_size, Xte.shape[0]
+    exact_ms = main["stages"]["engine.knn cascade"]
+    n_classes = int(ds.y_train.max()) + 1
+    stage = {}
+
+    def timed(name, fn):
+        ms, out = cuda_ms(fn)
+        stage[name] = ms
+        log(f"  {name}: {ms:.1f} ms")
+        return out
+
+    def report(label, ms, nn, st):
+        recall = float((nn == exact_nn).to(torch.float32).mean())
+        log(f"    {label}: recall@1 {recall:.4f}, {1e3 * ms / B:.2f} us "
+            f"per query (exact cascade {1e3 * exact_ms / B:.2f}), embed "
+            f"{1e3 * st['t_embed_s']:.2f} / shortlist "
+            f"{1e3 * st['t_shortlist_s']:.2f} / re-rank "
+            f"{1e3 * st['t_rerank_s']:.2f} ms, dp_pairs {st['dp_pairs']}")
+        return recall
+
+    reset_launch_counts()
+    curve = []
+    for R in SKETCH_RS:
+        seng = timed(f"fit with sketch_r = {R} (K1 {N} x {R} embedding)",
+                     lambda R=R: fit(eng.spec.replace(sketch_r=R),
+                                     eng.corpus, labels=ds.y_train,
+                                     sp=eng.sp, bsp=eng.bsp, device=DEVICE))
+        prev = -1.0
+        for c in SKETCH_TOP_C + (N,):
+            ms, (nn, d, st) = cuda_ms(lambda c=c: seng.knn(
+                Xte, mode="sketch", top_c=c, return_stats=True), warmup=1)
+            rec = report(f"R {R} top_c {c}", ms, nn, st)
+            curve.append({"R": R, "C": c, "approx": False, "recall": rec,
+                          "ms": ms, "dp_pairs": st["dp_pairs"]})
+            require(rec >= prev, f"recall@1 fell from {prev} to {rec} at "
+                    f"R {R}, top_c {c}")
+            prev = rec
+            if c == N:
+                require(torch.equal(nn, exact_nn) and
+                        torch.equal(d, exact_d),
+                        f"R {R}: top_c = N != the exact cascade")
+        ms, (nn, _, st) = cuda_ms(lambda: seng.knn(
+            Xte, mode="sketch", approx=True, return_stats=True), warmup=1)
+        rec = report(f"R {R} approx (top_c {st['shortlist_c']})", ms, nn, st)
+        curve.append({"R": R, "C": st["shortlist_c"], "approx": True,
+                      "recall": rec, "ms": ms, "dp_pairs": st["dp_pairs"]})
+        if R == SKETCH_SOFT_R:
+            soft_eng = seng
+    log(f"  top_c = N equals the exact cascade bit for bit at every R; "
+        f"recall@1 never falls as top_c grows")
+    # the soft embedding (K7) on the R = 16 anchors
+    idx = soft_eng.index
+    si = timed(f"soft sketch index R = {SKETCH_SOFT_R}, gamma {SOFT_GAMMA} "
+               f"(K7 {N} x {SKETCH_SOFT_R})",
+               lambda: sk.build_sketch_index(
+                   eng.corpus, idx.sketch.anchors, bsp=idx.bsp,
+                   weights=idx.weights, gamma=SOFT_GAMMA))
+    require(bool(torch.isfinite(si.sketch).all()), "soft sketch finite")
+    soft_idx = dataclasses.replace(idx, sketch=si)
+    for c in (32, N):
+        ms, (nn, d, st) = cuda_ms(lambda c=c: sk.sketch_knn(
+            Xte, soft_idx, top_c=c, return_stats=True), warmup=1)
+        report(f"soft R {SKETCH_SOFT_R} top_c {c}", ms, nn, st)
+        if c == N:
+            require(torch.equal(nn, exact_nn),
+                    "soft sketch at top_c = N != the exact cascade")
+    # svm_rws_series on the split
+    K, Kt = timed(f"svm_rws_series R = {SKETCH_RWS_R} (K1 embeddings)",
+                  lambda: svm.svm_rws_series(ds.X_train, Xte, sp=eng.sp,
+                                             R=SKETCH_RWS_R, seed=0,
+                                             device=DEVICE))
+    require(bool(torch.isfinite(K).all()) and bool(torch.isfinite(Kt).all()),
+            "RWS Gram blocks finite")
+    err = timed("svm_error RWS", lambda: svm.svm_error(
+        K, Kt, ds.y_train, ds.y_test, n_classes))
+    log(f"  RWS SVM test error (R = {SKETCH_RWS_R}): {err:.4f}")
+    launches = launch_counts()
+    log(f"  launches on the sketch path: {launches}")
+    for k in SKETCH_DEPENDS:
+        require(launches[k] > 0, f"{k} never launched on the sketch path")
+    # the card's features against the same call on the CPU
+    n = N_SKETCH_CHECK
+    for what, s_idx in (("hard", idx), ("soft", soft_idx)):
+        s = s_idx.sketch
+        got = sk.sketch_embed(Xte[:n], s.anchors, bsp=s_idx.bsp,
+                              weights=s_idx.weights, gamma=s.gamma)
+        want = sk.sketch_embed(Xte[:n].cpu(), s.anchors.cpu(),
+                               bsp=s_idx.bsp, weights=s_idx.weights.cpu(),
+                               gamma=s.gamma)
+        ab, rel = diff(got.cpu(), want)
+        log(f"  {what} sketch features, card vs CPU, {n} x {s.R}: max abs "
+            f"{ab:.3g} max rel {rel:.3g}")
+        # the soft features go through expf / log1pf, whose CUDA and CPU
+        # versions may differ in the last bit
+        limit = REL_LIMIT if s.gamma is None else SOFT_REL_LIMIT
+        require(rel <= limit, f"{what} sketch features: card != CPU")
+    log(f"  reference figure (BENCH_sketch.json, CPU, 512-series corpus, "
+        f"not this corpus): R 8, C 32, recall@1 0.969")
+    return {"curve": curve, "launches": launches, "stages": stage,
+            "rws_error": err}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4
 # ---------------------------------------------------------------------------
 
@@ -1660,13 +2129,15 @@ def kernels_line(rows, launches):
     return out
 
 
-def phase_profile(main, kp=None, cp=None):
+def phase_profile(main, kp=None, cp=None, tp=None):
     """Device time by kernel over one ``engine.knn``, one ``engine.gram``
     and the occupancy counts of 200 train series (torch.profiler), and,
     after the kernel path, one sp_krdtw ``engine.knn``, one SVM Gram
-    series, ``select_nu`` and ``select_theta_gamma``, and after the centroid path, one 10-step barycenter fit of a
-    class and one centroid-seeded ``engine.knn``; with the device's busy
-    share of the wall time of each call."""
+    series, ``select_nu`` and ``select_theta_gamma``; after the centroid
+    path, one 10-step barycenter fit of a class and one centroid-seeded
+    ``engine.knn``; after the tables, the whole protocol of phase 3d's
+    timed pass; with the device's busy share of the wall time of each
+    call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1700,6 +2171,9 @@ def phase_profile(main, kp=None, cp=None):
         calls += [("barycenter of class 0, 10 steps",
                    lambda: ceng.barycenter(members, steps=10)),
                   ("centroid-seeded engine.knn", lambda: ceng.knn(X))]
+    if tp is not None:
+        calls += [(f"paper-table protocol, TwoPatterns {N_TRAIN}/{N_TEST}",
+                   lambda: paper_tables(main["ds"], DEVICE))]
     for what, fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1708,29 +2182,33 @@ def phase_profile(main, kp=None, cp=None):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        # rows whose device is the card are the kernels themselves
-        rows = [(e.key, e.device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.device_time_total > 0]
-        busy = sum(r[1] for r in rows)
-        if not rows:
+        # the profiler's raw device records (kernels and copies), summed
+        # here: building its per-event objects for a call of ~10^5
+        # launches (the protocol's SVM loops) would take minutes
+        dev = sorted((e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == DeviceType.CUDA),
+                     key=lambda e: e.start_ns())
+        if not dev:
             log(f"  {what}: profiler saw no device time (not measured)")
             continue
+        by_name = {}
+        for e in dev:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        busy = sum(ms for ms, _ in by_name.values())
         log(f"  {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
             f"({100 * busy / wall_ms:.1f}%), idle "
             f"{100 * (1 - busy / wall_ms):.1f}%")
-        ours = [e.device_time_total / 1e3 for e in prof.events()
-                if e.device_type == DeviceType.CUDA
-                and any(k in e.name for k in ("gram_kernel", "paired_kernel",
-                                              "thread_kernel",
-                                              "narrow_kernel", "wide_kernel",
-                                              "wavefront_kernel",
-                                              "banded_kernel", "fwd_kernel",
-                                              "bwd_kernel"))]
+        ours = [e.duration_ns() / 1e6 for e in dev
+                if any(k in e.name() for k in (
+                    "gram_kernel", "paired_kernel", "thread_kernel",
+                    "narrow_kernel", "wide_kernel", "regs_kernel",
+                    "wavefront_kernel", "banded_kernel", "fwd_kernel",
+                    "bwd_kernel"))]
         log(f"    CUDA kernel launches in order (ms): "
             f"{', '.join(f'{t:.2f}' for t in ours)}")
-        for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        for key, (ms, n) in sorted(by_name.items(),
+                                   key=lambda r: -r[1][0])[:8]:
             log(f"    {ms:9.2f} ms  x{n:<5d} {key[:90]}")
 
 
@@ -1766,8 +2244,15 @@ def main(argv=None) -> int:
     log(f"phase 3c: centroid and soft-Gram path, TwoPatterns "
         f"{N_TRAIN}/{N_TEST}, T={T_MAIN} ({time.perf_counter() - t0:.1f} s)")
     cp = phase_centroid_path(main_out)
+    log(f"phase 3d: the paper's tables, seven datasets at default sizes, "
+        f"then TwoPatterns {N_TRAIN}/{N_TEST} timed "
+        f"({time.perf_counter() - t0:.1f} s)")
+    tp = phase_tables(main_out)
+    log(f"phase 3e: the sketch tier, TwoPatterns {N_TRAIN}/{N_TEST} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    skp = phase_sketch(main_out)
     log("profile: device time by kernel")
-    phase_profile(main_out, kp, cp)
+    phase_profile(main_out, kp, cp, tp)
     if args.stop_after < 4:
         return 0
     log(f"phase 4: kernel timing at the paths' shapes "
@@ -1780,10 +2265,11 @@ def main(argv=None) -> int:
     launches.update({k: cp["launches"][k] for k in SOFT})
     for what, lc in (("SP-DTW path (phase 3)", main_out["launches"]),
                      ("kernel-measure path (phase 3b)", kp["launches"]),
-                     ("centroid path (phase 3c)", cp["launches"])):
-        log(f"  K1-K4 launches on the {what}: " + ", ".join(
-            f"{k} {lc[k]}" for k in ("spdtw_tiles_gram", "spdtw_tiles_paired",
-                                     "krdtw_gram", "krdtw_paired")))
+                     ("centroid path (phase 3c)", cp["launches"]),
+                     ("tables' timed pass (phase 3d)", tp["launches"]),
+                     ("sketch path (phase 3e)", skp["launches"])):
+        log(f"  launches on the {what}: " + ", ".join(
+            f"{k} {lc[k]}" for k in KERNELS))
     kernels = kernels_line(rows, launches)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card_line())

@@ -6,4 +6,5 @@ from .crossval import (Selected, select_nu, select_radius,
                        select_theta_gamma)
 from .knn import (error_rate, knn_error, knn_error_series, knn_predict,
                   loo_error)
-from .svm import svm_error, svm_fit, svm_gram_series, svm_predict
+from .svm import (svm_error, svm_fit, svm_gram_series, svm_predict,
+                  svm_rws_series)

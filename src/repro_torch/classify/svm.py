@@ -14,11 +14,16 @@ bias removes the equality constraint; with cosine-normalized kernels
 raw series through the fitted engine: ``engine.gram_log`` (K3 on the
 card) for the train x train and test x train log-kernel Grams, and
 ``engine.pairs`` (K4) for the test self-similarities.
+``svm_rws_series`` builds linear Gram blocks from the engine's sketch
+features instead (K1).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+# svm_predict forms its (test, class, train) products this many at a time
+_PREDICT_CHUNK = 1 << 24
 
 
 def _solve_binary(K: torch.Tensor, ybins: torch.Tensor, C: float,
@@ -56,10 +61,16 @@ def svm_fit(K: torch.Tensor, y, n_classes: int, C: float,
 def svm_predict(alphas: torch.Tensor, K_test: torch.Tensor, y,
                 n_classes: int) -> torch.Tensor:
     """K_test: (N_test, N_train). Returns predicted labels (argmax of the
-    decision values, first index on ties)."""
+    decision values, first index on ties). Products below float32's
+    normal range count as zero, as in the reference's XLA
+    (``core.krdtw.flush_subnormal``)."""
+    from repro_torch.core.krdtw import flush_subnormal
     ybins = _ybins(_labels(y, K_test.device), n_classes)
-    # decision_k(x) = sum_i a_ki ybin_ki K(x_i, x)
-    dec = torch.einsum("ki,ti->tk", alphas * ybins, K_test)
+    # decision_k(x) = sum_i a_ki ybin_ki K(x_i, x), test rows in blocks
+    coef = (alphas * ybins)[None, :, :]
+    rows = max(1, _PREDICT_CHUNK // max(1, coef.numel()))
+    dec = torch.cat([flush_subnormal(coef * K_test[s:s + rows, None, :])
+                     .sum(dim=2) for s in range(0, K_test.shape[0], rows)])
     return torch.argmax(dec, dim=1)
 
 
@@ -96,6 +107,46 @@ def svm_gram_series(X_train, X_test, *, kind: str = "sp_krdtw", sp=None,
     d_ee = -self_eng.pairs(Xte, Xte, impl=impl)
     return (normalized_gram(lg_tt, d_tt, d_tt),
             normalized_gram(lg_et, d_ee, d_tt))
+
+
+def svm_rws_series(X_train, X_test, *, sp=None, R: int = 32,
+                   seed: int = 0, theta: float = 1.0,
+                   bandwidth: float = None, impl: str = "auto",
+                   device=None):
+    """Linear-SVM Gram blocks from Random Warping Series features, the
+    sketch tier's classification path.
+
+    Fits an SP-DTW engine with ``R`` sketch anchors (drawn from ``seed``
+    through the spec, so the features are reproducible), embeds both
+    splits as their SP-DTW distances to the anchors on the learned
+    support (K1 on the card), and maps distances to RWS features
+    ``exp(-d / (2 b^2)) / sqrt(R)`` (``bandwidth`` b defaults to the
+    square root of the median train sketch distance). ``device`` as for
+    ``fit``. Returns (K_train, K_test), plain feature inner products,
+    ready for ``svm_fit`` / ``svm_predict``.
+    """
+    from repro_torch.core.engine import fit
+    from repro_torch.core.spec import MeasureSpec
+    spec = MeasureSpec("spdtw", theta=theta, seed=seed, sketch_r=R)
+    eng = fit(spec, X_train, sp=sp, device=device)
+    si = eng.index.sketch
+    D_tr = si.sketch                                      # (N_tr, R)
+    D_te = eng.sketch_embed(X_test, impl=impl)            # (N_te, R)
+    if bandwidth is None:
+        bandwidth = float(torch.sqrt(_median(D_tr) + 1e-8))
+    scale = 2.0 * bandwidth * bandwidth
+    root_r = torch.sqrt(torch.tensor(float(si.R), device=D_tr.device))
+    F_tr = torch.exp(-D_tr / scale) / root_r
+    F_te = torch.exp(-D_te / scale) / root_r
+    return F_tr @ F_tr.T, F_te @ F_tr.T
+
+
+def _median(X: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` of all entries: the mean of the two middle values
+    for an even count (``torch.median`` takes the lower one)."""
+    v = torch.sort(X.reshape(-1)).values
+    n = v.shape[0]
+    return v[n // 2] if n % 2 else (v[n // 2 - 1] + v[n // 2]) / 2
 
 
 def svm_error(K_train: torch.Tensor, K_test: torch.Tensor, y_train, y_test,

@@ -7,6 +7,11 @@ slot, blocks, T, meta) and the corpus with its labels. This module turns
 those arrays, handed over as numpy, into the port's objects, so a port
 engine computes on exactly the support the reference computes on.
 
+A reference engine fit with ``sketch_r > 0`` also carries its sketch
+(anchors, corpus sketch, squared norms, seed, gamma): jax's threefry
+draws have no torch twin, so a port engine built from that state
+searches on the reference's anchors, not on its own.
+
 ``centroid_model_from_reference`` carries a fitted centroid model
 (centroids, labels, medoids) across the same way.
 
@@ -31,7 +36,8 @@ from repro_torch.core.spec import MeasureSpec
 def state_from_reference(engine) -> dict:
     """The fitted state of a reference engine as numpy arrays and plain
     values: {"spec": {...}, "T", "sp": {...} | None, "bsp": {...} | None,
-    "corpus": array | None, "labels": array | None}."""
+    "corpus": array | None, "labels": array | None, "sketch": {...} |
+    None}."""
     spec = {f.name: getattr(engine.spec, f.name)
             for f in dataclasses.fields(MeasureSpec)}
     sp = None
@@ -48,11 +54,18 @@ def state_from_reference(engine) -> dict:
                "slot": np.asarray(b.slot, np.int32),
                "blocks": np.asarray(b.blocks, np.float32), "T": int(b.T),
                "meta": np.asarray(b.plan(), np.int32)}
+    sketch = None
+    si = getattr(engine.index, "sketch", None)
+    if si is not None:
+        sketch = {"anchors": np.asarray(si.anchors, np.float32),
+                  "sketch": np.asarray(si.sketch, np.float32),
+                  "sq": np.asarray(si.sq, np.float32), "seed": int(si.seed),
+                  "gamma": None if si.gamma is None else float(si.gamma)}
     return {"spec": spec, "T": int(engine.T), "sp": sp, "bsp": bsp,
             "corpus": None if engine.corpus is None
             else np.asarray(engine.corpus, np.float32),
             "labels": None if engine.labels is None
-            else np.asarray(engine.labels)}
+            else np.asarray(engine.labels), "sketch": sketch}
 
 
 def sparse_paths_from_arrays(sp: dict, device) -> SparsePaths:
@@ -80,15 +93,30 @@ def block_sparse_from_arrays(bsp: dict) -> BlockSparsePaths:
 def engine_from_state(state: dict, device=None) -> SimilarityEngine:
     """The port engine for a reference engine's fitted state (see
     ``state_from_reference``), on ``device`` (default ``cuda``)."""
+    from repro_torch.core.engine import resolve_device
     spec = MeasureSpec(**state["spec"])
     sp = bsp = None
     if state.get("sp") is not None:
-        from repro_torch.core.engine import resolve_device
         sp = sparse_paths_from_arrays(state["sp"], resolve_device(device))
     if state.get("bsp") is not None:
         bsp = block_sparse_from_arrays(state["bsp"])
-    return fit(spec, state.get("corpus"), labels=state.get("labels"),
-               sp=sp, bsp=bsp, T=state["T"], device=device)
+    sk = state.get("sketch")
+    # a carried sketch replaces the port's own draw: fit without one
+    eng = fit(spec if sk is None else spec.replace(sketch_r=0),
+              state.get("corpus"), labels=state.get("labels"), sp=sp,
+              bsp=bsp, T=state["T"], device=device)
+    if sk is None:
+        return eng
+    from repro_torch.core.sketch import SketchIndex
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=eng.device)
+
+    si = SketchIndex(anchors=t(sk["anchors"]), sketch=t(sk["sketch"]),
+                     sq=t(sk["sq"]), seed=int(sk["seed"]),
+                     gamma=sk["gamma"])
+    return dataclasses.replace(
+        eng, spec=spec, index=dataclasses.replace(eng.index, sketch=si))
 
 
 def centroid_model_from_reference(model, device=None):

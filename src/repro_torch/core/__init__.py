@@ -10,7 +10,11 @@
   euclidean, corr, daco                             (baselines.py)
   envelopes, lb_kim_band_cross, lb_keogh_cross,
   krdtw_log_slacks, lb_log_krdtw                    (bounds.py)
-  CorpusIndex, build_corpus_index                   (measures.py)
+  CorpusIndex, build_corpus_index, Measure,
+  make_measure, ALL_MEASURES, pairwise              (measures.py)
+  spdtw, spdtw_loc, spdtw_pairwise                  (spdtw.py)
+  SketchIndex, random_anchors, sketch_embed,
+  sketch_knn, ...                                   (sketch.py)
   NEG, soft_wdtw, soft_spdtw, soft_dtw,
   soft_alignment, logsumexp_scan                    (softdtw.py)
   MeasureSpec                                       (spec.py)
@@ -27,8 +31,13 @@ from .occupancy import (BlockSparsePaths, SparsePaths, block_sparsify,
 from .bounds import (envelopes, krdtw_log_slacks, lb_keogh_cross,
                      lb_kim_band_cross, lb_kim_cross, lb_log_krdtw,
                      row_min_weights, support_extents)
-from .measures import CorpusIndex, build_corpus_index
+from .measures import (ALL_MEASURES, CorpusIndex, Measure,
+                       build_corpus_index, make_measure, pairwise)
+from .spdtw import spdtw, spdtw_loc, spdtw_pairwise
 from .softdtw import (NEG, logsumexp_scan, soft_alignment, soft_dtw,
                       soft_spdtw, soft_wdtw)
 from .spec import MeasureSpec
 from .engine import SimilarityEngine, fit
+from .sketch import (ANCHOR_SALT, SketchIndex, anchor_generator,
+                     build_sketch_index, random_anchors, sketch_embed,
+                     sketch_knn, sketch_shortlist)

@@ -5,7 +5,10 @@ the support grid, the block-sparse tile plan and the per-corpus search
 index exactly once, and returns a frozen ``SimilarityEngine`` whose
 ``pairs`` / ``gram`` / ``gram_log`` / ``knn`` / ``classify`` and the
 differentiable ``soft_pairs`` / ``soft_gram`` / ``grad`` / ``barycenter``
-/ ``fit_centroids`` reuse them.
+/ ``fit_centroids`` reuse them; ``measure`` is its ``Measure`` view
+(paper Table VI's visited cells). A spec with ``sketch_r > 0`` also
+fits the Random Warping Series sketch (``core.sketch``):
+``knn(mode="sketch")`` and ``sketch_embed``.
 Every family of ``MeasureSpec`` fits: the min-plus DPs (``dtw``,
 ``dtw_sc``, ``spdtw``), the K_rdtw kernels (``krdtw``, ``krdtw_sc``,
 ``sp_krdtw``; log-kernel values, negated into dissimilarities by
@@ -32,7 +35,8 @@ import numpy as np
 import torch
 
 from .dtw import band_mask
-from .measures import CorpusIndex, build_corpus_index
+from .measures import (CorpusIndex, Measure, _as_series, build_corpus_index,
+                       make_measure)
 from .occupancy import BlockSparsePaths, SparsePaths, learn_sparse_paths
 from .spec import KERNEL_FAMILIES, MeasureSpec
 
@@ -49,12 +53,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass "
                            "device='cpu' to compute on the CPU")
     return dev
-
-
-def _as_series(X, device) -> torch.Tensor:
-    if not isinstance(X, torch.Tensor):
-        X = torch.as_tensor(np.array(X, np.float32))
-    return X.to(device=device, dtype=torch.float32)
 
 
 def _band_sp(T: int, radius: int, device) -> SparsePaths:
@@ -123,6 +121,14 @@ class SimilarityEngine:
     def corpus_size(self) -> int:
         """Number of fitted corpus series (0 when support-only)."""
         return 0 if self.corpus is None else int(self.corpus.shape[0])
+
+    @property
+    def measure(self) -> Measure:
+        """The ``core.measures.Measure`` view of this engine (pair-level
+        evaluators, visited-cell accounting), on the engine's device."""
+        return make_measure(self.family, self.T, sp=self.sp,
+                            radius=self.spec.radius, nu=self.spec.nu,
+                            lags=self.spec.lags, device=self.device)
 
     def _series(self, X) -> torch.Tensor:
         return _as_series(X, self.device)
@@ -196,20 +202,35 @@ class SimilarityEngine:
 
     def knn(self, Q, *, impl: str = "auto", seed_k: int = 2,
             prefix_frac: float = 0.5, return_stats: bool = False,
-            mode: str = "exact"):
-        """Exact 1-NN of each query against the fitted corpus:
-        dissimilarity engines through the lower-bound cascade (DESIGN.md
-        §4), kernel engines through the log-semiring cascade (§14), both
-        bit-identical to the full Gram argmin; families without an index
-        (dtw_sc, krdtw_sc, the baselines, multivariate kernels) take the
-        Gram argmin itself. Returns (nn_idx, nn_dist[, stats])."""
+            mode: str = "exact", top_c: Optional[int] = None,
+            approx: bool = False):
+        """1-NN of each query against the fitted corpus.
+
+        ``mode="exact"``: dissimilarity engines through the lower-bound
+        cascade (DESIGN.md §4), kernel engines through the log-semiring
+        cascade (§14), both bit-identical to the full Gram argmin;
+        families without an index (dtw_sc, krdtw_sc, the baselines,
+        multivariate kernels) take the Gram argmin itself.
+
+        ``mode="sketch"`` (DESIGN.md §13; needs a spec fit with
+        ``sketch_r > 0``): the sketch matmul shortlist of the ``top_c``
+        sketch-nearest candidates, re-ranked exactly (K2 on the card):
+        equal to exact mode whenever the shortlist holds the true
+        neighbour; ``approx=True`` skips the re-rank.
+        Returns (nn_idx, nn_dist[, stats])."""
         from repro_torch.kernels import ops
-        if mode != "exact":
-            raise NotImplementedError("only mode='exact' is ported; the "
-                                      "sketch tier comes later")
+        if mode not in ("exact", "sketch"):
+            raise ValueError(f"mode must be exact or sketch, not {mode!r}")
         if self.corpus is None:
             raise ValueError("engine was fit without a corpus")
         Q = self._series(Q)
+        if mode == "sketch":
+            from .sketch import sketch_knn
+            if self.index is None or self.index.sketch is None:
+                raise ValueError("sketch mode needs a spec fit with "
+                                 "sketch_r > 0")
+            return sketch_knn(Q, self.index, top_c=top_c, approx=approx,
+                              impl=impl, return_stats=return_stats)
         if self.index is not None:
             kw = dict(impl=impl, seed_k=seed_k, prefix_frac=prefix_frac,
                       return_stats=return_stats)
@@ -226,6 +247,21 @@ class SimilarityEngine:
                          "n_candidates": self.corpus_size,
                          "pre_dp_prune": 0.0,
                          "dp_pairs": int(Q.shape[0]) * self.corpus_size}
+
+    def sketch_embed(self, X, *, impl: str = "auto") -> torch.Tensor:
+        """Project series into the engine's (R,) sketch space:
+        (B, T) -> (B, R), one masked DP per (series, anchor) pair under
+        the fitted support and weights (K1 on the card; K7 for a soft
+        sketch): the features ``mode="sketch"`` shortlists on. Needs a
+        spec fit with ``sketch_r > 0``."""
+        from .sketch import sketch_embed as _sketch_embed
+        if self.index is None or self.index.sketch is None:
+            raise ValueError("sketch_embed needs a spec fit with "
+                             "sketch_r > 0")
+        si = self.index.sketch
+        return _sketch_embed(self._series(X), si.anchors,
+                             bsp=self.index.bsp, weights=self.index.weights,
+                             gamma=si.gamma, impl=impl)
 
     def classify(self, Q, *, impl: str = "auto",
                  via: str = "auto") -> np.ndarray:
@@ -400,6 +436,17 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
             w = sp.weights
         iw = w if w is not None else np.ones((T, T), np.float32)
         index = build_corpus_index(corpus, iw, kind=spec.family, bsp=plan)
+        if spec.sketch_r > 0 and d == 1:
+            # sketch tier (DESIGN.md §13): anchors drawn on the CPU from
+            # the spec's seed, corpus embedded through the same engines
+            from .sketch import (anchor_generator, build_sketch_index,
+                                 random_anchors)
+            anchors = random_anchors(anchor_generator(spec.seed),
+                                     spec.sketch_r, T,
+                                     max_len=spec.sketch_len).to(dev)
+            si = build_sketch_index(corpus, anchors, bsp=index.bsp,
+                                    weights=index.weights, seed=spec.seed)
+            index = dataclasses.replace(index, sketch=si)
     elif corpus is not None and d == 1 and \
             spec.family in ("krdtw", "sp_krdtw"):
         # kernel-measure index (DESIGN.md §14): unit weights over the

@@ -74,6 +74,14 @@ class SparsePaths:
         """Visited-cell count (paper Table VI's '# visited cells')."""
         return int(self.support.sum())
 
+    def loc_list(self):
+        """Paper's LOC interchange format: the row-major (rows, cols,
+        weights) triples of the support, as numpy arrays."""
+        sup = self.support.detach().cpu().numpy()
+        w = self.weights.detach().cpu().numpy()
+        rows, cols = np.nonzero(sup)         # np.nonzero is row-major
+        return rows.astype(np.int32), cols.astype(np.int32), w[rows, cols]
+
 
 def learn_sparse_paths(X: torch.Tensor, theta: float = 1.0,
                        gamma: float = 0.0,

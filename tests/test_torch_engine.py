@@ -193,7 +193,7 @@ def test_entry_points_default_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_fit(spec, ds.X_train)
-    # every family fits now; what is not ported yet still says so
+    # every family fits; a sketch search needs a spec fit with a sketch
     eng = t_fit(TSpec("krdtw", support="dense"), ds.X_train, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="sketch_r > 0"):
         eng.knn(ds.X_test, mode="sketch")
