@@ -91,10 +91,28 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    neighbours must equal the exact cascade's bit for bit, recall@1 must
    not fall as top_c grows, and the card's features must equal the same
    call on the CPU (rel 1e-6; 1e-5 for the soft ones).
-   For each path the launch counters are set to 0 just before and read
-   just after, and each of its kernels must have launched. Then a
-   torch.profiler pass gives the device time by kernel and the device's
-   idle share for calls of the paths.
+3f. Serving, through ``repro_torch.launch`` and ``repro_torch.monitor``
+   on phase 3's split: ``stream_search`` (batch 64, the 4000 test
+   series) in cascade mode, sketch mode (phase 3e's R = 16 engine, top_c
+   = N) and centroid mode (phase 3c's model), each equal bit for bit to
+   ``engine.knn`` / ``nearest_centroid``, with its prune rates and
+   per-stage p50 / p95 / p99; the offline, server (seeded Poisson
+   arrivals at half the calibrated capacity) and single-stream (256
+   queries) load shapes on the retrieval workload; ``refresh_run`` at
+   full width (750 series, 250 arrivals in mini-batches of 25, the
+   learner threaded on its own CUDA stream): versions monotone, the final
+   snapshot equal to a fresh fit, every served batch equal to the answers
+   of the snapshot that served it; the same with a centroid model
+   refreshed by 4 Adam steps a batch (K8 / K9); ``anomaly_run`` (R = 16,
+   256 calibration rows, window 64, 25 % injected outliers): decisions
+   equal to the exact cascade's, the sketch map's axes orthonormal to
+   1e-6, and ROC-AUC, escalation rate, the p99 overhead and the drift
+   monitor printed beside the reference schema's limits (a finding, not
+   a gate: the port's anchors are its own).
+   For each path (each part of 3f) the launch counters are set to 0 just
+   before and read just after, and each of its kernels must have
+   launched. Then a torch.profiler pass gives the device time by kernel
+   and the device's idle share for calls of the paths.
 4. Timing at the paths' shapes: each kernel against its plain version,
    with its bound (K8 / K9 as their bare launches' device time, with the
    template each launch takes); K6 at each ``select_radius`` width under
@@ -1654,7 +1672,296 @@ def phase_sketch(main):
     log(f"  reference figure (BENCH_sketch.json, CPU, 512-series corpus, "
         f"not this corpus): R 8, C 32, recall@1 0.969")
     return {"curve": curve, "launches": launches, "stages": stage,
-            "rws_error": err}
+            "rws_error": err, "engine": soft_eng}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3f: serving (SearchEngine, load shapes, refresh, monitoring)
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 64
+N_SINGLE_STREAM = 256
+# refresh: 750 initial series, 250 arrivals in mini-batches of 25
+REFRESH_ARRIVAL_FRAC, REFRESH_LEARNER_BATCH = 0.25, 25
+REFRESH_CENTROID_STEPS, CENTROID_FIT_STEPS = 4, 10
+ANOMALY_SKETCH_R, ANOMALY_N_CAL, ANOMALY_WINDOW = 16, 256, 64
+# the reference schema's limits (benchmarks/check_artifacts.py), printed
+# beside the port's values: the port's anchors are its own
+AUC_LIMIT = 0.9
+# the kernels each part of the serving path must launch
+SERVING_DEPENDS = {
+    "stream search": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+    "load shapes": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+    "refresh": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+    "centroid refresh": ("spdtw_tiles_gram", "spdtw_tiles_paired",
+                         "soft_tiles_stash", "soft_tiles_bwd"),
+    "anomaly": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+}
+
+
+def _log_serving(name, sc):
+    p = sc["latency_ms"]
+    log(f"    {name}: {sc['throughput_qps']:.1f} queries/s, p50 "
+        f"{p['p50']:.2f} / p95 {p['p95']:.2f} / p99 {p['p99']:.2f} ms "
+        f"({sc['n_queries']} queries, batch {sc['batch']})")
+
+
+def _log_stats(label, st):
+    prune = {k: round(v, 4) for k, v in st.items()
+             if k.endswith("_prune") or k == "dp_abandoned"}
+    lat = ", ".join(f"{k} {v['p50']:.2f} / {v['p95']:.2f} / {v['p99']:.2f}"
+                    for k, v in st["latency_ms"].items())
+    log(f"    {label} stats: prune {prune}, dp pairs {st['pairs_dp']}; "
+        f"batch p50 / p95 / p99 ms: {lat}")
+
+
+def _recorder():
+    """An ``on_batch`` hook for ``server_scenario`` and the list it fills
+    with (snapshot engine, first row, rows, nn, dist) per served batch."""
+    records = []
+
+    def hook(serve, lo, take, nn, dist):
+        records.append((serve.engine, lo, take, nn, dist))
+
+    return records, hook
+
+
+def _check_served(records, queries, what):
+    """Every served batch equals the answers its snapshot gives the whole
+    query set (computed once per version), bit for bit. Returns the
+    versions that served."""
+    import numpy as np
+    answers = {}
+    for eng, lo, take, nn, dist in records:
+        if eng.version not in answers:
+            a, b = eng.knn(queries)
+            answers[eng.version] = (a.cpu().numpy(), b.cpu().numpy())
+        want_nn, want_d = answers[eng.version]
+        require(np.array_equal(nn[:take], want_nn[lo:lo + take]) and
+                np.array_equal(dist[:take], want_d[lo:lo + take]),
+                f"{what}: a batch served by version {eng.version} != that "
+                f"snapshot's answers")
+    return sorted(answers)
+
+
+def phase_serving(main, cp, skp):
+    """The serving tier through the port's public API, on phase 3's
+    TwoPatterns split and engines. Stream search (``stream_search``, batch
+    64, 4000 test series) in cascade mode (neighbours and distances equal
+    to phase 3's ``engine.knn``, accuracy equal to ``classify``'s), sketch
+    mode on phase 3e's R = 16 engine at top_c = N (the same) and centroid
+    mode on phase 3c's model (equal to ``nearest_centroid``'s argmin); the
+    offline, server and single-stream load shapes on the retrieval
+    workload; ``refresh_run`` at full width (750 + 250 arrivals in
+    mini-batches of 25, the learner threaded on its own stream: versions
+    monotone, the final snapshot equal to a fresh fit, every served batch
+    equal to its snapshot's answers), then the same with a centroid model
+    refreshed by 4 Adam steps a batch (K8 / K9); ``anomaly_run`` (R = 16,
+    256 calibration rows, window 64, 25 % outliers: decisions equal to
+    the exact path; ROC-AUC, escalation, overhead and drift printed) and
+    the sketch map's orthonormality. Launch counters are set to 0 before
+    each part and read after it."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.cluster import nearest_centroid
+    from repro_torch.core import SnapshotStore
+    from repro_torch.core.engine import fit
+    from repro_torch.core.occupancy import learn_sparse_paths
+    from repro_torch.core.spec import MeasureSpec
+    from repro_torch.data import load
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import scenarios as sc
+    from repro_torch.launch.learner import Learner
+    from repro_torch.launch.search import (SearchEngine, _make_workload,
+                                           stream_search)
+    eng, ds = main["engine"], main["ds"]
+    Xte = ds.X_test
+    exact_nn = main["nn"].cpu().numpy()
+    exact_d = main["G"].gather(1, main["nn"][:, None].long())[:, 0] \
+        .cpu().numpy()
+    N = eng.corpus_size
+    parts, stage = {}, {}
+
+    def part(name, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t0) * 1e3
+        lc = launch_counts()
+        parts[name] = lc
+        log(f"  {name}: {stage[name]:.1f} ms; launches: " + ", ".join(
+            f"{k} {v}" for k, v in lc.items() if v))
+        for k in SERVING_DEPENDS[name]:
+            require(lc[k] > 0, f"{k} never launched in the serving part "
+                    f"{name!r}")
+
+    # ---- stream search, three modes
+    def stream():
+        acc_want = float(np.mean(ds.y_train[exact_nn] == ds.y_test))
+        se = SearchEngine(None, engine=eng)
+        res = stream_search(se, Xte, batch=SERVE_BATCH)
+        nn = np.array([r.nn for r in res])
+        d = np.array([r.dist for r in res], np.float32)
+        acc = float(np.mean(np.array([r.label for r in res]) == ds.y_test))
+        require(np.array_equal(nn, exact_nn) and np.array_equal(d, exact_d),
+                "stream_search cascade != phase 3's engine.knn")
+        require(acc == acc_want, "stream_search accuracy != classify's")
+        log(f"    cascade: neighbours and distances == phase 3's "
+            f"engine.knn, bit for bit; accuracy {acc:.4f} == classify's")
+        _log_stats("cascade", se.stats())
+        sk = SearchEngine(None, engine=skp["engine"], mode="sketch",
+                          top_c=N)
+        res = stream_search(sk, Xte, batch=SERVE_BATCH)
+        require(np.array_equal(np.array([r.nn for r in res]), exact_nn) and
+                np.array_equal(np.array([r.dist for r in res], np.float32),
+                               exact_d),
+                "stream_search sketch at top_c = N != engine.knn")
+        log(f"    sketch R {skp['engine'].index.sketch.R}, top_c = N: == "
+            f"phase 3's engine.knn, bit for bit")
+        _log_stats("sketch", sk.stats())
+        cm = cp["ceng"].centroid_model
+        ce = SearchEngine(None, engine=eng, mode="centroid",
+                          centroid_model=cm)
+        res = stream_search(ce, Xte, batch=SERVE_BATCH)
+        idx, dist = nearest_centroid(Xte, cm)
+        require(np.array_equal(np.array([r.nn for r in res]),
+                               idx.cpu().numpy()) and
+                np.array_equal(np.array([r.dist for r in res], np.float32),
+                               dist.cpu().numpy()),
+                "stream_search centroid != nearest_centroid")
+        log(f"    centroid ({cm.k} centroids): == nearest_centroid's "
+            f"argmin, bit for bit")
+        _log_stats("centroid", ce.stats())
+
+    part("stream search", stream)
+
+    # ---- load shapes on the retrieval workload
+    queries = _make_workload(ds, "retrieval", N_TEST, 0)
+
+    def shapes():
+        se = SearchEngine(None, engine=eng)
+        out = {"offline": sc.offline_scenario(se, queries, SERVE_BATCH),
+               "server": sc.server_scenario(se, queries, SERVE_BATCH),
+               "single_stream": sc.single_stream_scenario(
+                   se, queries[:N_SINGLE_STREAM])}
+        for name, r in out.items():
+            _log_serving(name, r)
+        log(f"    server: offered {out['server']['rate_qps']:.1f} "
+            f"queries/s (half the calibrated capacity), mean batch "
+            f"{out['server']['mean_batch']:.1f}")
+
+    part("load shapes", shapes)
+
+    # ---- refresh: the threaded learner behind live serving
+    n_train = N_TRAIN
+    rds = load("TwoPatterns", n_train=n_train, T=T_MAIN)
+    rq = _make_workload(rds, "retrieval", N_TEST, 0)
+
+    def refresh():
+        records, hook = _recorder()
+        p = sc.refresh_run(dataset="TwoPatterns", n_queries=N_TEST,
+                           batch=SERVE_BATCH, n_train=n_train, T=T_MAIN,
+                           seed=0, arrival_frac=REFRESH_ARRIVAL_FRAC,
+                           learner_batch=REFRESH_LEARNER_BATCH,
+                           threaded=True, device=DEVICE, on_batch=hook)
+        require(p["versions_monotone"], "refresh: versions not monotone")
+        require(p["exact_final"], "refresh: final snapshot != a fresh fit")
+        want = -(-p["n_arrivals"] // REFRESH_LEARNER_BATCH)
+        require(p["n_snapshots"] == want, f"refresh: {p['n_snapshots']} "
+                f"snapshots, not {want}")
+        served = _check_served(records, rq, "refresh")
+        log(f"    {p['corpus_initial']} + {p['n_arrivals']} arrivals in "
+            f"batches of {p['learner_batch']}: {p['n_snapshots']} "
+            f"snapshots, versions monotone, final == a fresh fit; "
+            f"{len(records)} batches served by versions {served}, each "
+            f"== its snapshot's answers")
+        _log_serving("server (frozen)", p["server"])
+        _log_serving("server + learner", p["server_refresh"])
+        st = p["staleness"]
+        log(f"    snapshot cadence {1e3 * p['snapshot_cadence_s']:.1f} ms; "
+            f"staleness: {st['n_refreshes']} refreshes, mean lag "
+            f"{st['mean_lag']:.3f}, max lag {st['max_lag']}; p99 "
+            f"{p['server']['latency_ms']['p99']:.2f} -> "
+            f"{p['server_refresh']['latency_ms']['p99']:.2f} ms")
+
+    part("refresh", refresh)
+
+    def centroid_refresh():
+        n0 = len(rds.X_train) - int(len(rds.X_train) * REFRESH_ARRIVAL_FRAC)
+        sp = learn_sparse_paths(torch.as_tensor(rds.X_train[:32],
+                                                device=DEVICE), theta=8.0)
+        e0 = fit(MeasureSpec("spdtw"), rds.X_train[:n0],
+                 labels=rds.y_train[:n0], sp=sp, device=DEVICE)
+        e0 = e0.fit_centroids(1, steps=CENTROID_FIT_STEPS)
+        store = SnapshotStore(e0, keep_history=True)
+        serve = SearchEngine(None, refresh=store)
+        learner = Learner(store, rds.X_train[n0:], labels=rds.y_train[n0:],
+                          batch=REFRESH_LEARNER_BATCH,
+                          centroid_steps=REFRESH_CENTROID_STEPS)
+        records, hook = _recorder()
+        learner.start()
+        try:
+            r = sc.server_scenario(serve, rq, SERVE_BATCH, on_batch=hook)
+        finally:
+            learner.join()
+        versions = [s.version for s in store.history]
+        want = 1 + -(-(len(rds.X_train) - n0) // REFRESH_LEARNER_BATCH)
+        require(versions == list(range(want)),
+                f"centroid refresh: versions {versions}")
+        last = store.current().engine
+        z0, z1 = e0.centroid_model.centroids, last.centroid_model.centroids
+        require(bool(torch.isfinite(z1).all()) and not torch.equal(z0, z1),
+                "centroid refresh: centroids not refreshed")
+        served = _check_served(records, rq, "centroid refresh")
+        nn_a, d_a = last.knn(rq)
+        nn_b, d_b = dataclasses.replace(last, centroid_model=None).knn(rq)
+        require(torch.equal(nn_a, nn_b) and torch.equal(d_a, d_b),
+                "centroid refresh: seeded cascade != unseeded")
+        log(f"    {len(store.history) - 1} snapshots with {last.centroid_model.k} "
+            f"centroids refreshed ({REFRESH_CENTROID_STEPS} Adam steps a "
+            f"batch; max centroid move {float((z1 - z0).abs().max()):.4f}); "
+            f"{len(records)} batches served by versions {served}, each == "
+            f"its snapshot's answers")
+        _log_serving("server + centroid learner", r)
+
+    part("centroid refresh", centroid_refresh)
+
+    # ---- anomaly: the monitor on every batch
+    def anomaly():
+        p = sc.anomaly_run(dataset="TwoPatterns", n_queries=N_TEST,
+                           batch=SERVE_BATCH, n_train=n_train, T=T_MAIN,
+                           seed=0, sketch_r=ANOMALY_SKETCH_R,
+                           n_cal=ANOMALY_N_CAL, window=ANOMALY_WINDOW,
+                           device=DEVICE)
+        require(p["decisions_exact"], "anomaly: decide != decide_exact")
+        emb = p["embed_map"]
+        require(emb["orthonormal_err"] <= 1e-6,
+                "sketch_map axes not orthonormal")
+        dr = p["drift"]
+        log(f"    decisions == the exact cascade's, bit for bit; tau "
+            f"{p['tau']:.4f}, {p['n_outliers']} outliers, flag rate "
+            f"{p['flag_rate']:.4f}, escalation rate "
+            f"{p['escalation_rate']:.4f} ({p['n_escalated']} rows)")
+        log(f"    finding (not gated; the port's anchors): ROC-AUC "
+            f"{p['roc_auc']:.4f} (reference limit >= {AUC_LIMIT}); drift "
+            f"events i.i.d. {dr['events_iid']} (limit 0), shifted "
+            f"{dr['events_shift']} (limit >= 1)")
+        _log_serving("server, monitor off", p["server"])
+        _log_serving("server, monitor on", p["server_monitor"])
+        lat = p["stage_latency_ms"]
+        log(f"    monitored batches, p50 / p99 ms: monitor stage "
+            f"{lat['monitor']['p50']:.2f} / {lat['monitor']['p99']:.2f}, "
+            f"search {lat['total']['p50']:.2f} / {lat['total']['p99']:.2f}")
+        log(f"    p99 overhead of monitoring {p['p99_overhead_ms']:+.2f} ms "
+            f"(ratio {p['p99_overhead_ratio']:.3f}); sketch map: "
+            f"explained variance {[round(v, 4) for v in emb['explained_var']]}"
+            f", orthonormality error {emb['orthonormal_err']:.3g}")
+
+    part("anomaly", anomaly)
+    total = {k: sum(lc[k] for lc in parts.values()) for k in KERNELS}
+    return {"launches": total, "stages": stage}
 
 
 # ---------------------------------------------------------------------------
@@ -2129,7 +2436,7 @@ def kernels_line(rows, launches):
     return out
 
 
-def phase_profile(main, kp=None, cp=None, tp=None):
+def phase_profile(main, kp=None, cp=None, tp=None, serving=False):
     """Device time by kernel over one ``engine.knn``, one ``engine.gram``
     and the occupancy counts of 200 train series (torch.profiler), and,
     after the kernel path, one sp_krdtw ``engine.knn``, one SVM Gram
@@ -2174,6 +2481,13 @@ def phase_profile(main, kp=None, cp=None, tp=None):
     if tp is not None:
         calls += [(f"paper-table protocol, TwoPatterns {N_TRAIN}/{N_TEST}",
                    lambda: paper_tables(main["ds"], DEVICE))]
+    if serving:
+        from repro_torch.launch.search import SearchEngine, stream_search
+        calls += [(f"stream_search cascade, {N_TEST} queries at batch "
+                   f"{SERVE_BATCH}",
+                   lambda: stream_search(SearchEngine(None, engine=eng),
+                                         main["ds"].X_test,
+                                         batch=SERVE_BATCH))]
     for what, fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2251,8 +2565,11 @@ def main(argv=None) -> int:
     log(f"phase 3e: the sketch tier, TwoPatterns {N_TRAIN}/{N_TEST} "
         f"({time.perf_counter() - t0:.1f} s)")
     skp = phase_sketch(main_out)
+    log(f"phase 3f: serving, TwoPatterns {N_TRAIN}/{N_TEST} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    sv = phase_serving(main_out, cp, skp)
     log("profile: device time by kernel")
-    phase_profile(main_out, kp, cp, tp)
+    phase_profile(main_out, kp, cp, tp, serving=True)
     if args.stop_after < 4:
         return 0
     log(f"phase 4: kernel timing at the paths' shapes "
@@ -2267,7 +2584,8 @@ def main(argv=None) -> int:
                      ("kernel-measure path (phase 3b)", kp["launches"]),
                      ("centroid path (phase 3c)", cp["launches"]),
                      ("tables' timed pass (phase 3d)", tp["launches"]),
-                     ("sketch path (phase 3e)", skp["launches"])):
+                     ("sketch path (phase 3e)", skp["launches"]),
+                     ("serving path (phase 3f)", sv["launches"])):
         log(f"  launches on the {what}: " + ", ".join(
             f"{k} {lc[k]}" for k in KERNELS))
     kernels = kernels_line(rows, launches)

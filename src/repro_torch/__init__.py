@@ -13,6 +13,11 @@ It follows the reference package's layer map, one directory per layer:
   train/     the in-house AdamW the barycenters use
   data/      offline synthetic-UCR datasets (the reference's generators)
              and the sequence pipeline
+  monitor/   anomaly scoring, drift detection and the dataset map over
+             the sketch tier
+  launch/    single-host serving: ``SearchEngine`` and ``stream_search``,
+             the background ``Learner`` publishing versioned snapshots
+             (``core.snapshot``), and the load-shape scenarios
 
 and imports neither ``jax`` nor ``repro``. The entry point is the fitted
 engine:
@@ -25,6 +30,10 @@ engine:
 A spec with ``sketch_r > 0`` also fits the Random Warping Series sketch:
 ``engine.knn(queries, mode="sketch", top_c=32)``.
 
+Serving wraps a fitted engine: ``SearchEngine(None, engine=engine)``
+answers batches, ``SearchEngine(None, refresh=store)`` adopts the
+snapshots a ``launch.learner.Learner`` publishes to a ``SnapshotStore``.
+
 ``convert`` carries a fitted reference engine's state (and centroid
 model) across.
 """
@@ -33,6 +42,7 @@ from .core import (ALL_MEASURES, BlockSparsePaths, CorpusIndex, Measure,
                    block_sparsify, build_corpus_index, default_tile, fit,
                    learn_sparse_paths, make_measure, pairwise,
                    pairwise_path_counts, spdtw, spdtw_loc, spdtw_pairwise)
+from .core import EngineSnapshot, SnapshotStore
 from .core import (SketchIndex, build_sketch_index, random_anchors,
                    sketch_embed, sketch_knn, sketch_shortlist)
 from .core import soft_alignment, soft_dtw, soft_spdtw, soft_wdtw

@@ -19,6 +19,7 @@
   soft_alignment, logsumexp_scan                    (softdtw.py)
   MeasureSpec                                       (spec.py)
   fit, SimilarityEngine                             (engine.py)
+  EngineSnapshot, SnapshotStore                     (snapshot.py)
 """
 from .dtw import (INF, band_cells, band_mask, dtw_matrix, dtw_sc, local_cost,
                   minplus_scan)
@@ -38,6 +39,7 @@ from .softdtw import (NEG, logsumexp_scan, soft_alignment, soft_dtw,
                       soft_spdtw, soft_wdtw)
 from .spec import MeasureSpec
 from .engine import SimilarityEngine, fit
+from .snapshot import EngineSnapshot, SnapshotStore
 from .sketch import (ANCHOR_SALT, SketchIndex, anchor_generator,
                      build_sketch_index, random_anchors, sketch_embed,
                      sketch_knn, sketch_shortlist)

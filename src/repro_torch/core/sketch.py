@@ -239,8 +239,10 @@ def _keogh_gathered(A: torch.Tensor, L: torch.Tensor, U: torch.Tensor,
 
 
 def _now(device) -> float:
+    # the caller's stream only: a learner refreshing on a stream of its
+    # own must not stall the serving stage's clock
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
     return time.time()
 
 
