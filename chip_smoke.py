@@ -109,8 +109,26 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    1e-6, and ROC-AUC, escalation rate, the p99 overhead and the drift
    monitor printed beside the reference schema's limits (a finding, not
    a gate: the port's anchors are its own).
-   For each path (each part of 3f) the launch counters are set to 0 just
-   before and read just after, and each of its kernels must have
+3g. Multi-device jobs. In this process, on phase 3's engine:
+   ``engine.shard(S)`` for S in {1, 2, 4, 8} (each shard's index equal to
+   ``with_corpus(shard)``'s bit for bit); the host path of
+   ``ShardedSearch`` for S in {2, 4, 8} on the 4000 test series (top-1
+   equal to phase 3's ``engine.knn``, top-3 to a stable argsort of phase
+   3's Gram, bit for bit); ``SearchEngine(shards=4)`` through
+   ``stream_search`` (batch 64) equal to ``engine.knn``, its batch p50 /
+   p99 beside the unsharded engine's; ``scenarios.run(shards=4)`` on 512
+   retrieval queries, ``exact`` true. Then through ``python -m
+   torch.distributed.run --standalone``: ``repro_torch.launch.gram``
+   (``--mode gram --kind spdtw``, ``--kind sp_krdtw``, ``--mode knn``; n
+   = 2048, T = 128), ``repro_torch.launch.cluster`` (k = 512, N = 2048,
+   T = 128, 30 steps) and ``repro_torch.launch.search --shards 2`` on the
+   split, each with 2 gloo ranks on this card, then gram spdtw and search
+   with 1 nccl rank; each must equal the same call in this process bit
+   for bit, launch its kernels (K1, K2, K3, K8, K9) on every rank (the
+   counts come back through ``--out``), and the 2-rank search must take
+   the distributed path.
+   For each path (each part of 3f and 3g) the launch counters are set to
+   0 just before and read just after, and each of its kernels must have
    launched. Then a torch.profiler pass gives the device time by kernel
    and the device's idle share for calls of the paths.
 4. Timing at the paths' shapes: each kernel against its plain version,
@@ -1965,6 +1983,283 @@ def phase_serving(main, cp, skp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3g: multi-device jobs (the sharded index, the launched jobs)
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARDS_SERVED = 4
+SCENARIO_QUERIES = 512
+# the reference's job CLIs' defaults (launch/gram.py, launch/cluster.py)
+JOB_N, JOB_T = 2048, 128
+CLUSTER_K, CLUSTER_STEPS = 512, 30
+LAUNCH_TIMEOUT_S = 300
+# the launcher passes: (collective backend, ranks)
+LAUNCHES = (("gloo", 2), ("nccl", 1))
+
+
+def _jobs():
+    """The launched jobs: (name, module, arguments, kernels each rank must
+    launch, run on the nccl pass too)."""
+    gram = ["--n", str(JOB_N), "--t", str(JOB_T)]
+    return (
+        ("gram spdtw", "repro_torch.launch.gram",
+         gram + ["--mode", "gram", "--kind", "spdtw"],
+         ("spdtw_tiles_gram",), True),
+        ("gram sp_krdtw", "repro_torch.launch.gram",
+         gram + ["--mode", "gram", "--kind", "sp_krdtw"],
+         ("krdtw_gram",), False),
+        ("knn", "repro_torch.launch.gram",
+         gram + ["--mode", "knn", "--kind", "spdtw"],
+         ("spdtw_tiles_gram", "spdtw_tiles_paired"), False),
+        ("cluster", "repro_torch.launch.cluster",
+         ["--k", str(CLUSTER_K), "--n", str(JOB_N), "--t", str(JOB_T),
+          "--steps", str(CLUSTER_STEPS)],
+         ("soft_tiles_stash", "soft_tiles_bwd"), False),
+        ("search", "repro_torch.launch.search",
+         ["--shards", "2", "--dataset", "TwoPatterns", "--n-train",
+          str(N_TRAIN), "--t", str(T_MAIN), "--queries", str(N_TEST),
+          "--batch", str(SERVE_BATCH), "--check"],
+         ("spdtw_tiles_gram", "spdtw_tiles_paired"), True),
+    )
+
+
+MULTI_DEPENDS = {
+    "shards": (),
+    "sharded search": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+    "sharded serving": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+    "scenarios.run": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+}
+
+
+def _one_process(name):
+    """The launched job ``name``'s call in this process (no group): its
+    result arrays."""
+    from repro_torch.launch import cluster, gram, search
+    if name == "gram spdtw":
+        return {"G": gram.run(JOB_N, JOB_T, "spdtw", device=DEVICE)}
+    if name == "gram sp_krdtw":
+        return {"G": gram.run(JOB_N, JOB_T, "sp_krdtw", device=DEVICE)}
+    if name == "knn":
+        nn, dist = gram.run(JOB_N, JOB_T, "spdtw", mode="knn",
+                            device=DEVICE)
+        return {"nn": nn, "dist": dist}
+    if name == "cluster":
+        Z, loss = cluster.run(CLUSTER_K, JOB_N, JOB_T, steps=CLUSTER_STEPS,
+                              device=DEVICE)
+        return {"Z": Z, "loss": loss}
+    res = search.run("TwoPatterns", n_queries=N_TEST, batch=SERVE_BATCH,
+                     n_train=N_TRAIN, T=T_MAIN, check=True, shards=2,
+                     device=DEVICE)
+    return {"nn": res["nn"], "dist": res["dist"]}
+
+
+def _launch(backend, nproc, module, args, out_dir):
+    """``python -m torch.distributed.run --standalone`` with ``nproc``
+    ranks of ``module``; returns (exit code, output, wall s). The launcher
+    and its ranks run in a session of their own, killed whole at the
+    time limit."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    # "--" keeps the job's options (--n, --t) from being read as
+    # abbreviations of the launcher's
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", "--", module, *args,
+           "--backend", backend, "--out", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=LAUNCH_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{module} with {nproc} {backend} ranks passed "
+                             f"{LAUNCH_TIMEOUT_S} s")
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def phase_multi(main):
+    """The multi-device tier on phase 3's engine and through the launcher.
+
+    In this process: ``engine.shard(S)`` for S in {1, 2, 4, 8}, each
+    shard's index equal to ``with_corpus(shard)``'s bit for bit; the host
+    path of ``ShardedSearch`` for S in {2, 4, 8} on the 4000 test series,
+    top-1 equal to phase 3's ``engine.knn`` and top-3 to a stable argsort
+    of phase 3's Gram, bit for bit; ``SearchEngine(shards=4)`` through
+    ``stream_search`` (batch 64) equal to ``engine.knn``, its batch p50 /
+    p99 beside the unsharded engine's in the same call; and
+    ``scenarios.run(shards=4)`` (512 retrieval queries): ``exact`` true.
+    Launch counters are set to 0 before each part and read after it.
+
+    Through ``torch.distributed.run``: the gram (spdtw, sp_krdtw), knn,
+    cluster and sharded search CLIs with 2 gloo ranks on this card, then
+    gram spdtw and search with 1 nccl rank. Each rank's launch counts
+    come back through ``--out``; every rank must have launched its
+    kernels, the sharded search must report the distributed path on 2
+    ranks, and each result must equal the same call in this process bit
+    for bit. A rank that fails fails the run."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import scenarios as sc
+    from repro_torch.launch.search import SearchEngine, stream_search
+    from repro_torch.launch.shard_index import ShardedSearch, shard_offsets
+    eng, ds, G = main["engine"], main["ds"], main["G"]
+    Xte = torch.as_tensor(ds.X_test, device=DEVICE)
+    exact_nn = main["nn"]
+    exact_d = G.gather(1, exact_nn[:, None].long())[:, 0]
+    N = eng.corpus_size
+    parts, stage = {}, {}
+
+    def part(name, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t0) * 1e3
+        lc = launch_counts()
+        parts[name] = lc
+        log(f"  {name}: {stage[name]:.1f} ms; launches: " + ", ".join(
+            f"{k} {v}" for k, v in lc.items() if v))
+        for k in MULTI_DEPENDS[name]:
+            require(lc[k] > 0, f"{k} never launched in the multi-device "
+                    f"part {name!r}")
+
+    def shards():
+        for S in SHARD_COUNTS:
+            offs = shard_offsets(N, S)
+            for s, se in enumerate(eng.shard(S)):
+                want = eng.with_corpus(
+                    eng.corpus[int(offs[s]):int(offs[s + 1])]).index
+                for f in ("corpus", "env_lo", "env_hi"):
+                    require(torch.equal(getattr(se.index, f),
+                                        getattr(want, f)),
+                            f"shard {s} of {S}: {f} != with_corpus's")
+        log(f"    engine.shard(S), S in {SHARD_COUNTS}: every shard's index "
+            f"== with_corpus(shard), bit for bit")
+
+    part("shards", shards)
+
+    def search():
+        ids3 = torch.sort(G, dim=1, stable=True).indices[:, :3]
+        for S in SHARD_COUNTS[1:]:
+            sh = ShardedSearch(eng, S)
+            require(sh.path == "host", f"S = {S}: path {sh.path}")
+            ms, (g, d) = cuda_ms(lambda: sh.knn(Xte))
+            require(torch.equal(g, exact_nn) and torch.equal(d, exact_d),
+                    f"sharded top-1, S = {S} != phase 3's engine.knn")
+            ms3, (g3, d3) = cuda_ms(
+                lambda: ShardedSearch(eng, S, k=3).knn(Xte))
+            require(torch.equal(g3.long(), ids3) and
+                    torch.equal(d3, G.gather(1, ids3)),
+                    f"sharded top-3, S = {S} != stable argsort of the Gram")
+            log(f"    S = {S} (host path, sizes "
+                f"{sh.balance()['sizes'][:2]}...): top-1 == engine.knn in "
+                f"{ms:.1f} ms, top-3 == stable argsort of the Gram in "
+                f"{ms3:.1f} ms, bit for bit")
+
+    part("sharded search", search)
+
+    def serving():
+        rows = {}
+        for S in (0, SHARDS_SERVED):
+            se = SearchEngine(None, engine=eng, shards=S)
+            res = stream_search(se, ds.X_test, batch=SERVE_BATCH)
+            nn = np.array([r.nn for r in res])
+            d = np.array([r.dist for r in res], np.float32)
+            require(np.array_equal(nn, exact_nn.cpu().numpy()) and
+                    np.array_equal(d, exact_d.cpu().numpy()),
+                    f"stream_search with shards={S} != engine.knn")
+            rows[S] = se.stats()["latency_ms"]["total"]
+        log(f"    stream_search batch {SERVE_BATCH}, shards="
+            f"{SHARDS_SERVED}: == engine.knn, bit for bit; batch p50 / "
+            f"p99 {rows[SHARDS_SERVED]['p50']:.2f} / "
+            f"{rows[SHARDS_SERVED]['p99']:.2f} ms (unsharded, same call: "
+            f"{rows[0]['p50']:.2f} / {rows[0]['p99']:.2f} ms)")
+
+    part("sharded serving", serving)
+
+    def scenarios():
+        p = sc.run(dataset="TwoPatterns", n_queries=SCENARIO_QUERIES,
+                   batch=SERVE_BATCH, shards=SHARDS_SERVED, n_train=N_TRAIN,
+                   T=T_MAIN, device=DEVICE)
+        require(p["exact"], "scenarios.run: sharded top-1 != single host")
+        log(f"    scenarios.run, {p['n_shards']} shards ({p['shard_path']} "
+            f"path, imbalance {p['shard_balance']['imbalance']:.3f}): "
+            f"exact")
+        for name, r in p["scenarios"].items():
+            _log_serving(name, r)
+
+    part("scenarios.run", scenarios)
+
+    # ---- the launched jobs
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-jobs-"))
+    launched = {}
+    try:
+        for backend, nproc in LAUNCHES:
+            for name, module, args, kernels, on_nccl in _jobs():
+                if backend == "nccl" and not on_nccl:
+                    continue
+                if name not in launched:
+                    t0 = time.perf_counter()
+                    launched[name] = _one_process(name)
+                    torch.cuda.synchronize()
+                    log(f"  {name}, one process: "
+                        f"{time.perf_counter() - t0:.1f} s")
+                out_dir = tmp / f"{backend}-{name.replace(' ', '-')}"
+                rc, out, wall = _launch(backend, nproc, module, args,
+                                        str(out_dir))
+                if rc != 0:
+                    log(out[-4000:])
+                require(rc == 0, f"{name}: {nproc} {backend} ranks exited "
+                        f"{rc}")
+                meta = json.loads((out_dir / "result.json").read_text())
+                got = np.load(out_dir / "result.npz")
+                require(meta["world_size"] == nproc and
+                        meta["backend"] == backend,
+                        f"{name}: group {meta['world_size']} "
+                        f"{meta['backend']}")
+                for r, lc in enumerate(meta["launches"]):
+                    for k in kernels:
+                        require(lc[k] > 0, f"{name}: {k} never launched on "
+                                f"rank {r} of {nproc} {backend}")
+                want = launched[name]
+                require(set(got.files) == set(want),
+                        f"{name}: result holds {got.files}")
+                for k, v in want.items():
+                    require(np.array_equal(got[k], v),
+                            f"{name}: {k} on {nproc} {backend} ranks != one "
+                            f"process (max abs difference "
+                            f"{np.abs(got[k] - v).max()})")
+                what = ""
+                if name == "search":
+                    path = meta["payload"]["stats"]["shard_balance"]["path"]
+                    require(path == ("dist" if nproc > 1 else "host"),
+                            f"search on {nproc} {backend} ranks took the "
+                            f"{path} path")
+                    lat = meta["payload"]["stats"]["latency_ms"]["total"]
+                    what = (f", {path} path, batch p50 / p99 "
+                            f"{lat['p50']:.2f} / {lat['p99']:.2f} ms")
+                log(f"  {name}, {nproc} {backend} rank(s): == one process, "
+                    f"bit for bit; job {meta['wall_s']:.2f} s, launch "
+                    f"{wall:.1f} s{what}; launches per rank: " + "; ".join(
+                        ", ".join(f"{k} {lc[k]}" for k in kernels)
+                        for lc in meta["launches"]))
+                lc_sum = {k: sum(lc[k] for lc in meta["launches"])
+                          for k in KERNELS}
+                parts[f"{name} ({backend})"] = lc_sum
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = {k: sum(lc[k] for lc in parts.values()) for k in KERNELS}
+    return {"launches": total, "stages": stage}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4
 # ---------------------------------------------------------------------------
 
@@ -2443,8 +2738,9 @@ def phase_profile(main, kp=None, cp=None, tp=None, serving=False):
     series, ``select_nu`` and ``select_theta_gamma``; after the centroid
     path, one 10-step barycenter fit of a class and one centroid-seeded
     ``engine.knn``; after the tables, the whole protocol of phase 3d's
-    timed pass; with the device's busy share of the wall time of each
-    call."""
+    timed pass; with ``serving``, a cascade ``stream_search`` unsharded
+    and on 4 shards; with the device's busy share of the wall time of
+    each call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2487,7 +2783,12 @@ def phase_profile(main, kp=None, cp=None, tp=None, serving=False):
                    f"{SERVE_BATCH}",
                    lambda: stream_search(SearchEngine(None, engine=eng),
                                          main["ds"].X_test,
-                                         batch=SERVE_BATCH))]
+                                         batch=SERVE_BATCH)),
+                  (f"stream_search cascade, {SHARDS_SERVED} shards (host "
+                   f"path), {N_TEST} queries at batch {SERVE_BATCH}",
+                   lambda: stream_search(
+                       SearchEngine(None, engine=eng, shards=SHARDS_SERVED),
+                       main["ds"].X_test, batch=SERVE_BATCH))]
     for what, fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2568,6 +2869,9 @@ def main(argv=None) -> int:
     log(f"phase 3f: serving, TwoPatterns {N_TRAIN}/{N_TEST} "
         f"({time.perf_counter() - t0:.1f} s)")
     sv = phase_serving(main_out, cp, skp)
+    log(f"phase 3g: multi-device jobs, the sharded index and the launched "
+        f"jobs ({time.perf_counter() - t0:.1f} s)")
+    mp = phase_multi(main_out)
     log("profile: device time by kernel")
     phase_profile(main_out, kp, cp, tp, serving=True)
     if args.stop_after < 4:
@@ -2585,7 +2889,8 @@ def main(argv=None) -> int:
                      ("centroid path (phase 3c)", cp["launches"]),
                      ("tables' timed pass (phase 3d)", tp["launches"]),
                      ("sketch path (phase 3e)", skp["launches"]),
-                     ("serving path (phase 3f)", sv["launches"])):
+                     ("serving path (phase 3f)", sv["launches"]),
+                     ("multi-device path (phase 3g)", mp["launches"])):
         log(f"  launches on the {what}: " + ", ".join(
             f"{k} {lc[k]}" for k in KERNELS))
     kernels = kernels_line(rows, launches)

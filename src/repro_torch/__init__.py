@@ -39,7 +39,8 @@ model) across.
 """
 from .core import (ALL_MEASURES, BlockSparsePaths, CorpusIndex, Measure,
                    MeasureSpec, SimilarityEngine, SparsePaths,
-                   block_sparsify, build_corpus_index, default_tile, fit,
+                   block_sparsify, build_corpus_index, default_tile,
+                   engine_for, fit,
                    learn_sparse_paths, make_measure, pairwise,
                    pairwise_path_counts, spdtw, spdtw_loc, spdtw_pairwise)
 from .core import EngineSnapshot, SnapshotStore

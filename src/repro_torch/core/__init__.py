@@ -18,7 +18,7 @@
   NEG, soft_wdtw, soft_spdtw, soft_dtw,
   soft_alignment, logsumexp_scan                    (softdtw.py)
   MeasureSpec                                       (spec.py)
-  fit, SimilarityEngine                             (engine.py)
+  fit, SimilarityEngine, engine_for                 (engine.py)
   EngineSnapshot, SnapshotStore                     (snapshot.py)
 """
 from .dtw import (INF, band_cells, band_mask, dtw_matrix, dtw_sc, local_cost,
@@ -38,7 +38,7 @@ from .spdtw import spdtw, spdtw_loc, spdtw_pairwise
 from .softdtw import (NEG, logsumexp_scan, soft_alignment, soft_dtw,
                       soft_spdtw, soft_wdtw)
 from .spec import MeasureSpec
-from .engine import SimilarityEngine, fit
+from .engine import SimilarityEngine, engine_for, fit
 from .snapshot import EngineSnapshot, SnapshotStore
 from .sketch import (ANCHOR_SALT, SketchIndex, anchor_generator,
                      build_sketch_index, random_anchors, sketch_embed,

@@ -29,7 +29,7 @@ CPU engine the plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -358,6 +358,29 @@ class SimilarityEngine:
                   bsp=self.bsp, T=self.T, device=self.device)
         return dataclasses.replace(eng, version=self.version + 1)
 
+    def shard(self, n_shards: int) -> Tuple["SimilarityEngine", ...]:
+        """Partition the fitted corpus state into contiguous row shards.
+
+        Returns ``n_shards`` engines (clamped to the corpus size), shard s
+        holding global rows ``[offsets[s], offsets[s+1])`` with
+        ``np.array_split`` sizes (they differ by at most one), its labels
+        and its index rows (``CorpusIndex.take``); the support, weights
+        and plan are shared by reference, and every shard keeps this
+        engine's device. Slicing, not re-fitting: each shard engine's
+        index equals ``with_corpus(shard)``'s bit for bit."""
+        if self.corpus is None:
+            raise ValueError("shard() needs a fitted corpus")
+        n = self.corpus_size
+        out = []
+        for ids in np.array_split(np.arange(n), max(1, min(int(n_shards),
+                                                           n))):
+            sel = slice(int(ids[0]), int(ids[-1]) + 1)
+            out.append(dataclasses.replace(
+                self, corpus=self.corpus[sel],
+                labels=None if self.labels is None else self.labels[sel],
+                index=None if self.index is None else self.index.take(sel)))
+        return tuple(out)
+
 
 def fit(spec: MeasureSpec, corpus=None, *, labels=None,
         sp: Optional[SparsePaths] = None, weights=None,
@@ -468,3 +491,20 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
     if centroids > 0:
         engine = engine.fit_centroids(centroids, steps=centroid_steps)
     return engine
+
+
+def engine_for(family: str = "spdtw", *, sp=None, bsp=None, weights=None,
+               tile=None, gamma: float = 0.1, nu: float = 1.0,
+               radius: int = 10, T: Optional[int] = None,
+               device=None) -> SimilarityEngine:
+    """Support-only engine from whichever handles the caller holds (the
+    jobs of ``launch/gram.py`` and ``launch/cluster.py`` fit through it):
+    the dense-support families take the dense support, the others the
+    "learned" one resolved from ``sp`` / ``weights`` / ``bsp``. ``device``
+    as for ``fit``."""
+    support = "dense" if family in ("dtw", "krdtw", "euclidean", "corr",
+                                    "daco", "dtw_sc", "krdtw_sc") \
+        else "learned"
+    spec = MeasureSpec(family=family, support=support, gamma=gamma, nu=nu,
+                       radius=radius, tile=tile)
+    return fit(spec, sp=sp, weights=weights, bsp=bsp, T=T, device=device)

@@ -129,6 +129,27 @@ class CorpusIndex:
         """Device the corpus rows live on."""
         return self.corpus.device
 
+    def take(self, sel) -> "CorpusIndex":
+        """Candidate-sliced view of this index (the sharding primitive).
+
+        ``sel`` is a slice or an integer row selector (repeats allowed).
+        The statics (weight grid, tile plan, support windows, endpoint
+        weights, kernel slacks) describe the measure and are shared by
+        reference; only the per-candidate rows (corpus, envelopes, and
+        the sketch's rows and squared norms) are sliced. Those rows are
+        computed row by row, so a taken index equals an index rebuilt on
+        the selected corpus rows, bit for bit.
+        """
+        if not isinstance(sel, slice):
+            sel = torch.as_tensor(np.asarray(sel), dtype=torch.long,
+                                  device=self.device)
+        sk = self.sketch
+        if sk is not None:
+            sk = dataclasses.replace(sk, sketch=sk.sketch[sel], sq=sk.sq[sel])
+        return dataclasses.replace(
+            self, corpus=self.corpus[sel], env_lo=self.env_lo[sel],
+            env_hi=self.env_hi[sel], sketch=sk)
+
 
 def build_corpus_index(corpus: torch.Tensor, weights,
                        kind: str = "spdtw",

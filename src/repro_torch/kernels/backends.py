@@ -42,8 +42,14 @@ PRUNED_DP = "pruned-dp"                # in-DP PrunedDTW row clamps and
 DIFFERENTIABLE = "differentiable"      # soft-SP-DTW forward with stash and
 #                                        the reverse expected-alignment
 #                                        sweep, at any d
+SHARDED = "sharded"                    # serves the per-shard cascade of the
+#                                        sharded tier (launch/
+#                                        shard_index.py) with early
+#                                        abandoning; the dense oracle does
+#                                        not serve
 
-CAPABILITIES = (MULTIVARIATE, EARLY_ABANDON, PRUNED_DP, DIFFERENTIABLE)
+CAPABILITIES = (MULTIVARIATE, EARLY_ABANDON, PRUNED_DP, DIFFERENTIABLE,
+                SHARDED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,12 +73,12 @@ _REGISTRY = {b.name: b for b in (
             "batched dense DPs over the full grid; the oracle"),
     Backend("scan", "cpu",
             frozenset({MULTIVARIATE, EARLY_ABANDON, PRUNED_DP,
-                       DIFFERENTIABLE}), "dense",
+                       DIFFERENTIABLE, SHARDED}), "dense",
             "plain PyTorch over the active-tile schedule and the core "
             "row recursions (DTW_sc, K_rdtw)"),
     Backend("cuda", "cuda",
             frozenset({MULTIVARIATE, EARLY_ABANDON, PRUNED_DP,
-                       DIFFERENTIABLE}), None,
+                       DIFFERENTIABLE, SHARDED}), None,
             "hand-written Hopper kernels: K1/K2 SP-DTW tiles "
             "(csrc/spdtw_tiles.cu), K3/K4 log K_rdtw wavefronts "
             "(csrc/krdtw_wavefront.cu), K5/K6 DTW wavefront and "

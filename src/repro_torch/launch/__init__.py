@@ -1,17 +1,30 @@
-"""repro_torch.launch — the single-host serving tier of the port.
+"""repro_torch.launch — serving on one host and the multi-device jobs.
 
-  stats.py       ``percentiles`` / ``PCTS``: the latency-percentile
-                 arithmetic every serving surface reports
-  search.py      ``SearchEngine`` (cascade, centroid and sketch modes,
-                 snapshot refresh, monitoring), ``stream_search``,
-                 ``python -m repro_torch.launch.search``
-  learner.py     ``Learner``: continuous fitting behind live serving,
-                 publishing versioned snapshots (on its own CUDA stream
-                 when threaded)
-  scenarios.py   the offline, server and single-stream load shapes, and
-                 the server+refresh and anomaly shapes
-                 (``python -m repro_torch.launch.scenarios``)
+  stats.py        ``percentiles`` / ``PCTS``: the latency-percentile
+                  arithmetic every serving surface reports
+  search.py       ``SearchEngine`` (cascade, centroid and sketch modes,
+                  snapshot refresh, monitoring, ``shards > 1``),
+                  ``stream_search``, ``python -m repro_torch.launch.search``
+  learner.py      ``Learner``: continuous fitting behind live serving,
+                  publishing versioned snapshots (on its own CUDA stream
+                  when threaded)
+  scenarios.py    the offline, server and single-stream load shapes over a
+                  sharded index (``run``, the serving payload), and the
+                  server+refresh and anomaly shapes
+                  (``python -m repro_torch.launch.scenarios``)
+  mesh.py         process groups from the launcher's environment
+                  (``torch.distributed``, nccl or gloo), each rank's
+                  device, the gathers the jobs use
+  shard_index.py  the sharded corpus index: ``shard_corpus_state``,
+                  ``local_topk``, ``merge_topk``, ``ShardedSearch``
+                  (distributed path over a group, host loop otherwise)
+  gram.py         the distributed Gram / exact 1-NN job
+                  (``python -m repro_torch.launch.gram``)
+  cluster.py      the distributed barycenter job
+                  (``python -m repro_torch.launch.cluster``)
 
-The sharded tier (``shard_index.py``, ``SearchEngine(shards > 1)`` and
-``scenarios.run``) belongs to the multi-device slice and is not here.
+The jobs run under ``python -m torch.distributed.run`` (``--backend
+nccl|gloo``) or as one rank without it. The LM slice's launchers
+(``train``, ``serve``, ``dryrun`` and the XLA compile probes) are not
+here.
 """

@@ -32,10 +32,18 @@ Two more shapes build on the server one:
     overhead of monitoring, ``decisions_exact`` and the drift monitor on
     i.i.d. and shifted streams.
 
-Every entry point computes on the CUDA card unless given
-``device="cpu"``. The sharded ``run`` of the reference (the serving
-payload over a sharded index) belongs to the multi-device slice.
+``run`` drives the first three over a sharded index
+(``SearchEngine(shards=S)``, ``launch/shard_index.py``) and returns the
+reference's ``BENCH_serving.json`` payload: throughput, latency
+percentiles, the shard path and balance, and an ``exact`` flag, computed
+first, that the sharded top-1 (ids and distances) equals the single-host
+cascade's bit for bit.
 
+Every entry point computes on the CUDA card unless given
+``device="cpu"``.
+
+  PYTHONPATH=src python -m repro_torch.launch.scenarios --shards 4 \\
+      --out /tmp/bench-serving
   PYTHONPATH=src python -m repro_torch.launch.scenarios \\
       --scenario server+refresh --out /tmp/bench-refresh
   PYTHONPATH=src python -m repro_torch.launch.scenarios --smoke \\
@@ -163,6 +171,66 @@ def single_stream_scenario(engine: SearchEngine,
     return {"n_queries": len(queries), "batch": 1, "wall_s": wall,
             "throughput_qps": len(queries) / wall,
             "latency_ms": percentiles(lat)}
+
+
+SCENARIOS = ("offline", "server", "single_stream")
+
+
+def run(dataset: str = "CBF", n_queries: int = 64, batch: int = 16,
+        shards: int = 2, scenario: str = "all", theta: float = 8.0,
+        n_train: int = 128, T: Optional[int] = None, impl: str = "auto",
+        seed: int = 0, rate_qps: Optional[float] = None,
+        n_sp_train: int = 32, device=None) -> dict:
+    """Fit one engine, shard it, drive the requested scenarios (``all`` or
+    one of ``SCENARIOS``) and return the ``BENCH_serving.json`` payload.
+    The ``exact`` flag is computed first: the sharded top-1 (ids and
+    distances) must equal the single-host cascade's over the whole query
+    set, bit for bit."""
+    from repro_torch.data import load
+    if scenario != "all" and scenario not in SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r}")
+    dev = resolve_device(device)
+    kw = {} if T is None else {"T": T}
+    ds = load(dataset, n_train=n_train, **kw)
+    Xtr = torch.as_tensor(ds.X_train, device=dev)
+    sp = learn_sparse_paths(Xtr[:n_sp_train], theta=theta)
+    shards = max(1, min(shards, len(ds.X_train)))
+    engine = SearchEngine(Xtr, ds.y_train, sp=sp, impl=impl, seed=seed,
+                          shards=shards, device=dev)
+    queries = _make_workload(ds, "retrieval", n_queries, seed)
+
+    sharded = engine.sharded
+    if sharded is None:
+        raise ValueError("run serves a sharded index: shards must be > 1 "
+                         "(and at most the corpus size)")
+    # exactness: sharded against the single-host cascade, bit for bit
+    g_sh, d_sh = sharded.knn(queries)
+    nn_one, d_one = engine.engine.knn(queries, impl=impl,
+                                      seed_k=engine.seed_k,
+                                      prefix_frac=engine.prefix_frac)
+    exact = bool(torch.equal(g_sh, nn_one) and torch.equal(d_sh, d_one))
+
+    wanted = SCENARIOS if scenario == "all" else (scenario,)
+    out_sc: Dict[str, dict] = {}
+    for name in wanted:
+        if name == "offline":
+            out_sc[name] = offline_scenario(engine, queries, batch)
+        elif name == "server":
+            out_sc[name] = server_scenario(engine, queries, batch,
+                                           rate_qps=rate_qps)
+        else:
+            out_sc[name] = single_stream_scenario(engine, queries)
+    return {
+        "bench": "serving", "backend": dev.type,
+        "impl": impl, "dataset": dataset, "corpus": engine.index.size,
+        "T": int(ds.T), "n_queries": int(n_queries), "seed": int(seed),
+        "n_shards": sharded.n_shards,
+        "shard_path": sharded.path,
+        "shard_balance": sharded.balance(),
+        "exact": exact,
+        "scenarios": out_sc,
+        "stats": engine.stats(),
+    }
 
 
 def refresh_run(dataset: str = "CBF", n_queries: int = 64,
@@ -407,17 +475,21 @@ def _print_latency(name: str, sc: dict) -> None:
 
 
 def main(argv=None) -> int:
-    """CLI entry: ``python -m repro_torch.launch.scenarios --scenario
-    server+refresh|anomaly [--smoke] [--device cpu] [--out DIR]``: writes
-    ``BENCH_refresh.json``, or ``BENCH_anomaly.json`` and
-    ``BENCH_embed.json``, under ``--out`` (default: a fresh temporary
-    directory) and exits nonzero when a gate of the payload fails."""
+    """CLI entry: ``python -m repro_torch.launch.scenarios [--smoke]
+    [--scenario all|offline|server|single_stream|server+refresh|anomaly]
+    [--shards S] [--device cpu] [--out DIR]``: writes
+    ``BENCH_serving.json`` (``BENCH_refresh.json`` for the refresh shape;
+    ``BENCH_anomaly.json`` and ``BENCH_embed.json`` for the anomaly shape)
+    under ``--out`` (default: a fresh temporary directory) and exits
+    nonzero when a gate of the payload fails."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scenario", required=True,
-                    choices=("server+refresh", "anomaly"))
+    ap.add_argument("--scenario", default="all",
+                    choices=("all",) + SCENARIOS +
+                    ("server+refresh", "anomaly"))
     ap.add_argument("--dataset", default="CBF")
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--shards", type=int, default=2)
     ap.add_argument("--theta", type=float, default=8.0)
     ap.add_argument("--impl", default="auto")
     ap.add_argument("--seed", type=int, default=0)
@@ -432,24 +504,30 @@ def main(argv=None) -> int:
                     help="artifact directory (default: a fresh temporary "
                          "directory)")
     args = ap.parse_args(argv)
+    refresh = args.scenario == "server+refresh"
     anomaly = args.scenario == "anomaly"
     kw = dict(dataset=args.dataset, n_queries=args.queries,
               batch=args.batch, theta=args.theta, impl=args.impl,
               seed=args.seed, rate_qps=args.rate_qps, device=args.device)
+    if not (refresh or anomaly):
+        kw.update(shards=args.shards, scenario=args.scenario)
     if args.smoke:
         kw.update(n_queries=min(args.queries, 24), batch=min(args.batch, 8),
                   n_train=48, T=32, n_sp_train=16)
-        kw.update(dict(sketch_r=4, n_cal=32, window=8, n_perm=100)
-                  if anomaly else dict(learner_batch=4))
+        if anomaly:
+            kw.update(sketch_r=4, n_cal=32, window=8, n_perm=100)
+        elif refresh:
+            kw.update(learner_batch=4)
     out_dir = args.out
     if out_dir is None:
         import tempfile
         out_dir = tempfile.mkdtemp(prefix="bench-serving-")
-    res = anomaly_run(**kw) if anomaly else refresh_run(**kw)
+    res = anomaly_run(**kw) if anomaly else (
+        refresh_run(**kw) if refresh else run(**kw))
     res["smoke"] = bool(args.smoke)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "BENCH_anomaly.json" if anomaly
-                        else "BENCH_refresh.json")
+    path = os.path.join(out_dir, "BENCH_anomaly.json" if anomaly else (
+        "BENCH_refresh.json" if refresh else "BENCH_serving.json"))
     if anomaly:
         # the dataset map is its own artifact
         emb = dict(res.pop("embed_map"), smoke=bool(args.smoke))
@@ -477,14 +555,21 @@ def main(argv=None) -> int:
                   "silent on shift)")
             return 1
         return 0
-    _print_latency("server", res["server"])
-    _print_latency("server+refresh", res["server_refresh"])
-    print(f"snapshots={res['n_snapshots']} "
-          f"cadence={res['snapshot_cadence_s']:.3f}s "
-          f"max_lag={res['staleness']['max_lag']}")
-    if not (res["exact_final"] and res["versions_monotone"]):
-        print("final snapshot diverged from a fresh fit, or versions were "
-              "not monotone")
+    if refresh:
+        _print_latency("server", res["server"])
+        _print_latency("server+refresh", res["server_refresh"])
+        print(f"snapshots={res['n_snapshots']} "
+              f"cadence={res['snapshot_cadence_s']:.3f}s "
+              f"max_lag={res['staleness']['max_lag']}")
+        if not (res["exact_final"] and res["versions_monotone"]):
+            print("final snapshot diverged from a fresh fit, or versions "
+                  "were not monotone")
+            return 1
+        return 0
+    for name, sc in res["scenarios"].items():
+        _print_latency(name, sc)
+    if not res["exact"]:
+        print("sharded top-1 diverged from the single-host cascade")
         return 1
     return 0
 

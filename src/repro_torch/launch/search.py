@@ -15,6 +15,13 @@ start-up and each query pays k = n_classes * N masked DPs (K1) instead of
 a corpus-sized cascade. With ``--sketch R`` it serves through the Random
 Warping Series tier (K1 embedding, matmul shortlist, K2 re-rank).
 
+With ``--shards S`` the corpus index is split into S shards served
+through ``launch.shard_index.ShardedSearch`` (the per-shard cascade and a
+global top-k merge, equal to the single-host answers): started by the
+launcher as S ranks (``--backend nccl|gloo``), rank r serves shard r and
+the ranks all-gather each batch's winners; in one process the shards are
+served by a loop.
+
 Entry points compute on the CUDA card unless given ``device="cpu"``
 (``--device cpu``), and raise when no card is present:
 
@@ -23,6 +30,9 @@ Entry points compute on the CUDA card unless given ``device="cpu"``
       --check
   PYTHONPATH=src python -m repro_torch.launch.search --workload classify \\
       --centroids 1 --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc_per_node 2 -m -- repro_torch.launch.search --shards 2 \\
+      --backend gloo --check --out /tmp/search
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import torch
 from repro_torch.core.engine import fit, resolve_device
 from repro_torch.core.occupancy import SparsePaths, learn_sparse_paths
 from repro_torch.core.spec import MeasureSpec
+from repro_torch.launch import mesh
 from repro_torch.launch.stats import percentiles
 
 _STAT_KEYS = ("stage1_prune", "stage2_prune", "stage3_prune",
@@ -97,9 +108,15 @@ class SearchEngine:
     monitor's counters. The monitor keeps its own calibration engine, so
     a snapshot refresh never moves its threshold.
 
+    ``shards > 1`` (cascade mode only) splits the corpus index into that
+    many shards and serves through ``launch.shard_index.ShardedSearch``:
+    the distributed path when the default process group has that many
+    ranks, a host loop otherwise; the answers equal the unsharded ones,
+    and ``stats()`` reports the shard story instead of the per-stage
+    prune counters. A snapshot adoption re-shards.
+
     ``device`` is where a fitted-here engine computes (default the CUDA
-    card); an engine handed over keeps its own. ``shards > 1`` is the
-    sharded tier of the multi-device slice, not ported yet.
+    card); an engine handed over keeps its own.
     """
 
     def __init__(self, corpus, labels=None, *, kind: str = "spdtw",
@@ -112,11 +129,9 @@ class SearchEngine:
         if mode not in ("cascade", "centroid", "sketch"):
             raise ValueError(f"mode must be cascade, centroid or sketch, "
                              f"not {mode!r}")
-        if shards > 1:
-            raise NotImplementedError(
-                "sharded serving (shards > 1) needs launch/shard_index.py "
-                "and SimilarityEngine.shard, which come with the port's "
-                "multi-device slice")
+        if shards > 1 and mode != "cascade":
+            raise ValueError("sharded serving is the exact cascade tier "
+                             "(mode='cascade')")
         if mode == "centroid" and centroid_model is None:
             raise ValueError("centroid mode needs a fitted "
                              "cluster.CentroidModel")
@@ -145,6 +160,7 @@ class SearchEngine:
         self.prefix_frac = prefix_frac
         self.top_c = top_c
         self.approx = approx
+        self.shards = int(shards)
         self.store = refresh
         self.monitor = monitor
         self._bind_engine(engine)
@@ -153,9 +169,9 @@ class SearchEngine:
     def _bind_engine(self, engine) -> None:
         """(Re)bind serving state to a fitted engine: the refresh seam.
 
-        Everything queries read (index, centroid model, label map) is
-        derived here from the one engine record, so adopting a snapshot
-        between batches re-derives all of it at once."""
+        Everything queries read (index, centroid model, label map, the
+        shards) is derived here from the one engine record, so adopting a
+        snapshot between batches re-derives all of it at once."""
         self.engine = engine
         self.index = engine.index
         self.centroid_model = engine.centroid_model
@@ -166,6 +182,12 @@ class SearchEngine:
         else:
             self.labels = None if engine.labels is None else \
                 np.asarray(engine.labels)
+        self.sharded = None
+        if self.shards > 1:
+            from repro_torch.launch.shard_index import ShardedSearch
+            self.sharded = ShardedSearch(engine, self.shards, impl=self.impl,
+                                         seed_k=self.seed_k,
+                                         prefix_frac=self.prefix_frac)
 
     def _maybe_refresh(self) -> None:
         """Adopt the store's current snapshot when a newer one was
@@ -231,6 +253,15 @@ class SearchEngine:
             self._pairs_total += n * self.index.size
             self._pairs_dp += n * self.centroid_model.k
             return idx, dist
+        if self.sharded is not None:
+            # per-shard cascade and global merge: the prune counters stay
+            # inside the shards, so only the wall clock is recorded
+            nn, dist = self.sharded.knn(Q)
+            nn, dist = nn.cpu().numpy(), dist.cpu().numpy()
+            self._record_lat("total", time.time() - t0)
+            self._queries += n
+            self._pairs_total += n * self.index.size
+            return nn, dist
         if self.mode == "sketch":
             nn, dist, st = self.engine.knn(
                 Q, impl=self.impl, mode="sketch", top_c=self.top_c,
@@ -255,17 +286,25 @@ class SearchEngine:
 
     def stats(self) -> Dict[str, float]:
         """Per-stage prune rates over everything served (cascade and
-        sketch modes; centroid serving runs no bounds), plus per-stage
+        sketch modes; centroid serving runs no bounds; sharded serving
+        reports ``n_shards`` and ``shard_balance`` instead), plus per-stage
         p50/p95/p99 batch latency under ``latency_ms`` (sketch mode
         breaks out embed / shortlist / re-rank; every mode records the
         total)."""
         if self._queries == 0:
             return {}
-        out: Dict[str, float] = {} if self.mode == "centroid" else \
-            {k: v / self._queries for k, v in self._stats_acc.items()}
-        out["pairs_dp"] = self._pairs_dp
-        out["pre_dp_prune_overall"] = 1.0 - self._pairs_dp / max(
-            self._pairs_total, 1)
+        if self.sharded is not None:
+            # the shards keep no prune counters; all-zero rates would read
+            # as a broken cascade, so the shard story is reported instead
+            out: Dict[str, float] = {
+                "n_shards": self.sharded.n_shards,
+                "shard_balance": self.sharded.balance()}
+        else:
+            out = {} if self.mode == "centroid" else \
+                {k: v / self._queries for k, v in self._stats_acc.items()}
+            out["pairs_dp"] = self._pairs_dp
+            out["pre_dp_prune_overall"] = 1.0 - self._pairs_dp / max(
+                self._pairs_total, 1)
         out["queries"] = self._queries
         out["pairs_total"] = self._pairs_total
         out["version"] = int(self.engine.version)
@@ -361,8 +400,10 @@ def run(dataset: str = "CBF", workload: str = "retrieval",
         device=None) -> dict:
     """Build an engine over a synthetic-UCR corpus and stream a query
     workload through it; returns throughput, prune rates, accuracy and
-    latency percentiles. ``sketch_r > 0`` serves through the sketch tier
-    with a ``top_c`` shortlist (``approx`` skips the re-rank). With
+    latency percentiles, and the served neighbours and distances (``nn``,
+    ``dist``) by request id. ``sketch_r > 0`` serves through the sketch
+    tier with a ``top_c`` shortlist (``approx`` skips the re-rank);
+    ``shards > 1`` through the sharded index. With
     ``check``, exactness against the full Gram is asserted: in sketch
     mode a full-coverage (top_c = corpus) pass must equal the Gram argmin
     and the served pass reports its recall instead."""
@@ -406,6 +447,9 @@ def run(dataset: str = "CBF", workload: str = "retrieval",
         "wall_s": dt, "queries_per_s": len(results) / dt,
         "mean_wait_steps": float(np.mean([r.wait_steps for r in results])),
         "stats": engine.stats(),
+        # the served answers, by request id
+        "nn": np.array([r.nn for r in results]),
+        "dist": np.array([r.dist for r in results], np.float32),
     }
     if model is not None:
         out["n_centroids"] = model.k
@@ -443,7 +487,10 @@ def run(dataset: str = "CBF", workload: str = "retrieval",
 
 def main(argv=None):
     """CLI entry: ``python -m repro_torch.launch.search [--centroids N]
-    [--sketch R] [--check] [--device cpu] ...``."""
+    [--sketch R] [--shards S] [--check] [--device cpu] ...``. Started by
+    ``torch.distributed.run``, every rank serves (``--backend`` names the
+    collective); ``--out DIR`` writes the served answers and each rank's
+    kernel launch counts (``mesh.report``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="CBF")
     ap.add_argument("--workload", default="retrieval",
@@ -451,6 +498,10 @@ def main(argv=None):
     ap.add_argument("--queries", type=int, default=64)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--theta", type=float, default=8.0)
+    ap.add_argument("--n-train", type=int, default=128, dest="n_train",
+                    help="corpus size (the dataset's train split)")
+    ap.add_argument("--t", type=int, default=None, dest="T",
+                    help="series length (default: the dataset's)")
     ap.add_argument("--impl", default="auto")
     ap.add_argument("--arrivals", type=int, default=None,
                     help="arrivals per step (default: all up front)")
@@ -468,15 +519,34 @@ def main(argv=None):
                     help="sketch shortlist size (the recall dial)")
     ap.add_argument("--approx", action="store_true",
                     help="skip the sketch re-rank (fastest, recall-bound)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="shard the corpus index into S shards and serve "
+                         "through the sharded cascade and global top-k "
+                         "merge (0 = single-host)")
     ap.add_argument("--device", default=None,
                     help="where to compute (default: the CUDA card)")
+    ap.add_argument("--backend", default=None, choices=mesh.BACKENDS,
+                    help="collective backend of a launched job")
+    ap.add_argument("--out", default=None,
+                    help="directory for the served answers and the ranks' "
+                         "launch counts")
     args = ap.parse_args(argv)
-    out = run(args.dataset, args.workload, args.queries, args.batch,
-              theta=args.theta, impl=args.impl,
-              arrivals_per_step=args.arrivals, check=args.check,
-              centroids=args.centroids, gamma=args.gamma,
-              sketch_r=args.sketch_r, top_c=args.top_c, approx=args.approx,
-              device=args.device)
+    device = mesh.init_group(args.backend, args.device) \
+        if args.backend else args.device
+    try:
+        t0 = time.perf_counter()
+        out = run(args.dataset, args.workload, args.queries, args.batch,
+                  theta=args.theta, impl=args.impl,
+                  arrivals_per_step=args.arrivals, check=args.check,
+                  n_train=args.n_train, T=args.T, centroids=args.centroids,
+                  gamma=args.gamma, sketch_r=args.sketch_r, top_c=args.top_c,
+                  approx=args.approx, shards=args.shards, device=device)
+        wall = time.perf_counter() - t0
+        answers = {"nn": out.pop("nn"), "dist": out.pop("dist")}
+        mesh.report(args.out, answers, {"job": "search", "wall_s": wall,
+                                        "payload": out})
+    finally:
+        mesh.destroy_group()
     print(json.dumps(out, indent=1, default=float))
     lat = out["stats"].get("latency_ms", {})
     for stage in ("embed", "shortlist", "rerank", "total"):

@@ -12,8 +12,8 @@ decoupled weight decay applied to the float32 master copy,
 sqrt(bc2) + eps), which rounds differently, so it is not used. The
 parameters are one tensor; ``update`` is functional (it returns the new
 parameters and a new state). The reference's pytrees, moment dtypes,
-sharding specs and LR schedules belong to the multi-device and LM slices
-and are not here.
+sharding specs (``state_pspecs``) and LR schedules (``cosine_schedule``)
+serve only its LM trainer and belong to the LM slice; they are not here.
 """
 from __future__ import annotations
 

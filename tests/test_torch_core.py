@@ -210,6 +210,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "import repro_torch.kernels.soft_block, repro_torch.core.softdtw;"
             "import repro_torch.cluster, repro_torch.classify.centroid;"
             "import repro_torch.train.optimizer;"
+            "import repro_torch.launch.shard_index, repro_torch.launch.mesh;"
+            "import repro_torch.launch.gram, repro_torch.launch.cluster;"
             "import chip_smoke;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"

@@ -236,8 +236,8 @@ def test_search_returns_host_arrays_and_labels(toy_engines):
 
 def test_search_engine_refuses_what_it_cannot_serve(toy_engines):
     X, y, Q, jsp, tsp, je, te = toy_engines
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        t_search.SearchEngine(None, engine=te, shards=2)
+    with pytest.raises(ValueError, match="cascade"):
+        t_search.SearchEngine(None, engine=te, shards=2, mode="sketch")
     with pytest.raises(ValueError):
         t_search.SearchEngine(None, engine=te, mode="centroid")
     with pytest.raises(ValueError):
@@ -378,7 +378,9 @@ NEW_MODULES = ("repro_torch.launch.stats", "repro_torch.launch.search",
                "repro_torch.launch.learner", "repro_torch.launch.scenarios",
                "repro_torch.core.snapshot", "repro_torch.monitor",
                "repro_torch.monitor.anomaly", "repro_torch.monitor.drift",
-               "repro_torch.monitor.embed")
+               "repro_torch.monitor.embed", "repro_torch.launch.mesh",
+               "repro_torch.launch.shard_index", "repro_torch.launch.gram",
+               "repro_torch.launch.cluster")
 
 
 def test_port_imports_neither_jax_nor_repro_nor_benchmarks():
