@@ -127,6 +127,27 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    for bit, launch its kernels (K1, K2, K3, K8, K9) on every rank (the
    counts come back through ``--out``), and the 2-rank search must take
    the distributed path.
+3h. The LM / Whisper serving path (plain PyTorch: the LM stack has no
+   TPU kernel). gemma3-4b at full width and depth (3.88 B parameters,
+   bf16, seeded): ``serve(..., batch=4, prompt_len=16, gen_tokens=16,
+   use_reduced=False)`` and its tokens/s; the decode step at batch 4,
+   in ``serve``'s loop (``generate``, a CUDA event after each step) and
+   captured as one CUDA graph, beside its bound (weights and cache over
+   3.35 TB/s); then 1100 teacher-forced positions at batch 1
+   (the local layers' 1024-row ring wraps) against ``forward_hidden`` on
+   the same tokens, in bf16 (atol 0.4 / rtol 0.1: bf16 drift over 34
+   layers) and in a float32 twin of the same weights (atol / rtol 1e-3),
+   each side of the wrap. The other nine configurations at their
+   published widths (jamba-v0.1-52b at 1 of 4 groups, deepseek-v2-236b
+   at the layers that fit in 50 GB): ``make_prefill`` at batch 4 x 16
+   tokens (+ 1500 Whisper frames, + 256 Pixtral patches), then
+   ``generate``: the prompt step by step and 8 greedy steps through
+   ``make_serve_step``, every output finite, the times beside the decode
+   bound (for MoE, only the experts the step's tokens routed to count).
+   Then each reduced configuration on the same weights: prefill and one
+   decode step on the card equal the CPU's within ``LM_CARD_FRAC`` of
+   each output's RMS (``lm_card_vs_cpu``, which
+   ``tests/test_torch_lm_cuda.py`` runs too).
    For each path (each part of 3f and 3g) the launch counters are set to
    0 just before and read just after, and each of its kernels must have
    launched. Then a torch.profiler pass gives the device time by kernel
@@ -2260,6 +2281,480 @@ def phase_multi(main):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3h
+# ---------------------------------------------------------------------------
+
+# gemma3-4b at full width and depth: serve's shape, then a teacher-forced
+# decode long enough for the local layers' 1024-row ring to wrap
+LM_FULL_ARCH = "gemma3-4b"
+LM_SERVE = (4, 16, 16)        # batch, prompt, generated tokens
+LM_WRAP_POSITIONS = 1100
+# the reference's decode-against-forward rtol (tests/test_smoke_archs.py)
+LM_RTOL = 0.1
+# gemma3-4b at full width and depth: bf16 decode against bf16 forward
+# (rtol as above), and the float32 twin's decode against its forward. The
+# reference's atol 0.15 does not hold at 34 layers: bf16 rounding drifts
+# with depth (decode and forward each ~0.3 from the float32 twin, 0.16 at
+# 17 layers), while the twin's decode equals its forward within 1e-4 on
+# both sides of the ring's wrap, so the cache is right.
+LM_FULL_ATOL = 0.4
+LM_F32_ATOL, LM_F32_RTOL = 1e-3, 1e-3
+# the other nine at their published widths: batch, prompt, greedy steps
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 16, 8
+# deepseek-v2-236b keeps as many layers as fit in this many bytes
+LM_DEPTH_BYTES = 50e9
+# reduced configurations, card against CPU on the same weights: each
+# output within a fraction of the CPU output's RMS, never above the
+# reference's atol 0.15. Measured worst |error| / RMS on an H100 over the
+# ten: logits 0.0 (3e-4 in an earlier run), hidden states 0.0137 and
+# cache leaves 0.027 (gemma3-4b)
+LM_CARD_FRAC = {"logits": 1e-3, "hidden": 0.04, "cache": 0.08}
+LM_ATOL_MAX = 0.15
+
+
+def _lm_cut(cfg):
+    """The depth a published configuration runs at on one card: jamba at
+    one group of its pattern, deepseek-v2-236b at as many layers as fit in
+    ``LM_DEPTH_BYTES``; every other configuration whole."""
+    import dataclasses
+    if cfg.name == "jamba-v0.1-52b":
+        return dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+    if cfg.name == "deepseek-v2-236b":
+        n = 1
+        while (n < cfg.n_layers and 2 * dataclasses.replace(
+                cfg, n_layers=n + 1).param_count() <= LM_DEPTH_BYTES):
+            n += 1
+        return dataclasses.replace(cfg, n_layers=n)
+    return cfg
+
+
+def _lm_free():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_expert_bytes(params):
+    """(bytes of every routed expert's weights, bytes of one expert in one
+    layer): the MoE leaves ``gate`` / ``up`` / ``down``, each (G, E, ...)."""
+    from repro_torch.models.lm import param_bytes
+    leaves = [g[k] for g in params["groups"] for k in ("gate", "up", "down")
+              if k in g]
+    if not leaves:
+        return 0, 0
+    total = sum(param_bytes(t) for t in leaves)
+    per_layer = sum(t.shape[0] * t.shape[1] for t in leaves) // 3
+    return total, total // per_layer
+
+
+def _lm_bound_ms(params, cache, routed=0.0):
+    """A decode step's least time: the bytes it must read once over the
+    memory rate. Every weight and the cache, except that of the routed
+    experts only the ones this run's tokens chose count: ``routed``
+    experts a step, summed over its MoE layers (the local path reads
+    every expert; ``_lm_expert_bytes``)."""
+    from repro_torch.models.lm import param_bytes
+    every, one = _lm_expert_bytes(params)
+    need = param_bytes(params) - every + routed * one + param_bytes(cache)
+    return need / HBM_RATE * 1e3
+
+
+def _lm_all_finite(tree) -> bool:
+    import torch
+    from repro_torch.models.lm import tree_leaves
+    return all(bool(torch.isfinite(t.float()).all())
+               for t in tree_leaves(tree))
+
+
+def _lm_generate(api, params, tokens, gen_tokens):
+    """``serve``'s loop (``launch.serve.generate``) on the card, a CUDA
+    event recorded after each step and the experts each MoE layer routes
+    to kept. Returns (generated tokens, ms of each step after the first,
+    the final cache, distinct experts a step summed over its MoE
+    layers)."""
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe
+    events, ids, last = [], [], {}
+
+    def on_step(pos, cache):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        last["cache"] = cache
+
+    router = moe._router
+
+    def logged(x, w_router, top_k):
+        out = router(x, w_router, top_k)
+        ids.append(out[0])
+        return out
+
+    moe._router = logged
+    try:
+        gen, _ = generate(api, params, tokens, gen_tokens, DEVICE,
+                          on_step=on_step)
+    finally:
+        moe._router = router
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    routed = sum(int(torch.unique(i).numel()) for i in ids) / len(events)
+    return gen, ms, last["cache"], routed
+
+
+def _lm_captured(api, params, cache, B):
+    """One decode step captured in a CUDA graph, to be replayed at any
+    position (the position is a device tensor the step reads). Returns
+    ``replay(token (B, 1), pos) -> logits (B, V)``, writing into
+    ``cache``."""
+    import torch
+    from repro_torch.models.lm import tree_map
+    tok = torch.zeros((B, 1), dtype=torch.long, device=DEVICE)
+    pos = torch.zeros((), dtype=torch.long, device=DEVICE)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm-up before capture
+        for _ in range(2):
+            api.decode_step(params, cache, tok, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    tree_map(lambda t: t.zero_(), cache)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, _ = api.decode_step(params, cache, tok, pos)
+
+    def replay(token, p):
+        tok.copy_(token)
+        pos.fill_(p)
+        graph.replay()
+        return logits
+
+    return replay
+
+
+def _lm_busy(fn):
+    """(wall ms, device-busy ms, device records) of ``fn()`` under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    return wall, sum(e.duration_ns() for e in dev) / 1e6, len(dev)
+
+
+def _lm_decode_logits(api, params, cache, toks):
+    """Teacher-forced decode of every position of ``toks`` (1, T) through
+    a captured step: the (T, V) float32 logits."""
+    import torch
+    replay = _lm_captured(api, params, cache, 1)
+    T = toks.shape[1]
+    out = None
+    for t in range(T):
+        lg = replay(toks[:, t:t + 1], t)[0]
+        if out is None:
+            out = torch.empty((T, lg.shape[0]), dtype=lg.dtype,
+                              device=DEVICE)
+        out[t] = lg
+    return out
+
+
+def _lm_compare(got, want, ring, atol, rtol):
+    """Per segment (rows before ``ring``, rows from it on): the worst
+    |got - want|, the worst excess over atol + rtol |want|, and the rows
+    whose argmax agree."""
+    d = (got - want).abs()
+    ex = d - atol - rtol * want.abs()
+    agree = got.argmax(-1) == want.argmax(-1)
+    return [(float(d[sl].max()), float(ex[sl].max()), int(agree[sl].sum()))
+            for sl in (slice(0, ring), slice(ring, None))]
+
+
+def _lm_full_width():
+    """gemma3-4b at full width and depth: ``serve`` on the card, its decode
+    step (eager and captured) against its bound, and 1100 teacher-forced
+    decode positions against ``forward_hidden`` through the ring's wrap,
+    in bf16 and in a float32 twin of the same weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, serve
+    from repro_torch.models import build, lm
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.train.train_step import make_prefill
+    batch, prompt, gen = LM_SERVE
+    t0 = time.perf_counter()
+    out = serve(LM_FULL_ARCH, batch=batch, prompt_len=prompt,
+                gen_tokens=gen, use_reduced=False, device=DEVICE)
+    wall = time.perf_counter() - t0
+    require(tuple(out["generated"]) == (batch, gen) and out["tokens_per_s"]
+            > 0, f"serve {LM_FULL_ARCH}: {out}")
+    cfg = get_config(LM_FULL_ARCH)
+    require(all(0 <= t < cfg.vocab for t in out["sample"]),
+            f"serve {LM_FULL_ARCH}: tokens out of range {out['sample']}")
+    log(f"  serve({LM_FULL_ARCH!r}, batch={batch}, prompt_len={prompt}, "
+        f"gen_tokens={gen}, use_reduced=False): {out['tokens_per_s']} "
+        f"tokens/s ({wall:.1f} s with the weights' draw); sample "
+        f"{out['sample']}")
+
+    api = build(cfg)
+    gen_t = torch.Generator(device=DEVICE).manual_seed(0)
+    params = api.init_params(gen_t)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    toks = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen_t,
+                         device=DEVICE)
+    pre_ms, (h, _) = cuda_ms(lambda: make_prefill(api, prompt + gen)(
+        params, {"tokens": toks}), reps=3, warmup=1)
+    require(_lm_all_finite(h), f"{LM_FULL_ARCH}: prefill is not finite")
+    host_toks = toks.cpu().numpy()
+    _, times, cache, _ = _lm_generate(api, params, host_toks, gen)
+    bound = _lm_bound_ms(params, cache)
+    ms = statistics.median(times)
+    busy = _lm_busy(lambda: generate(api, params, host_toks[:, :1], 4,
+                                     DEVICE))
+    replay = _lm_captured(api, params, cache, batch)
+    tok = toks[:, :1]
+    graph_ms, _ = cuda_ms(lambda: replay(tok, prompt), reps=10, warmup=2)
+    gbusy = _lm_busy(lambda: [replay(tok, prompt) for _ in range(4)])
+    log(f"  {LM_FULL_ARCH}, {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"parameters: prefill of {batch} x {prompt} tokens {pre_ms:.2f} "
+        f"ms; decode step of generate at batch {batch} {ms:.3f} ms eager "
+        f"(median of {len(times)}; {min(times):.3f}-{max(times):.3f}), "
+        f"{graph_ms:.3f} ms replayed as one CUDA graph; bound {bound:.3f} "
+        f"ms (weights and cache over {HBM_RATE / 1e12:.2f} TB/s): "
+        f"{ms / bound:.1f}x eager, {graph_ms / bound:.2f}x captured")
+    for what, (wall_ms, busy_ms, n) in (("eager (generate)", busy),
+                                        ("captured", gbusy)):
+        log(f"    profile of 4 {what} steps: wall {wall_ms:.1f} ms, device "
+            f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+            f"{100 * (1 - busy_ms / wall_ms):.1f}%, {n} device records "
+            f"({n / 4:.0f} a step)")
+    rows = {"arch": LM_FULL_ARCH, "tokens_per_s": out["tokens_per_s"],
+            "prefill_ms": pre_ms, "decode_ms": ms, "graph_ms": graph_ms,
+            "bound_ms": bound}
+    del cache, replay
+
+    # 1100 teacher-forced positions: the 1024-row ring of the local layers
+    # wraps; bf16, and a float32 twin of the same weights (its rounding
+    # cannot hide a wrong cache row)
+    T = LM_WRAP_POSITIONS
+    ring = min(s.window for s in cfg.pattern if s.window)
+    toks = torch.randint(0, cfg.vocab, (1, T), generator=gen_t,
+                         device=DEVICE)
+    logits = {}
+    for name in ("bf16", "f32"):
+        p = params if name == "bf16" else lm.tree_map(lambda t: t.float(),
+                                                      params)
+        t0 = time.perf_counter()
+        hid, _ = lm.forward_hidden(p, toks, cfg)
+        fwd = lm.logits_of(p, hid)[0]
+        del hid
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        cache = lm.init_cache(cfg, 1, T, dtype=lm.act_dtype(p),
+                              device=DEVICE)
+        t0 = time.perf_counter()
+        dec = _lm_decode_logits(api, p, cache, toks)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        logits[name] = (dec, fwd)
+        log(f"  {LM_FULL_ARCH} {name}: forward_hidden over {T} tokens "
+            f"{fwd_s:.2f} s; {T} teacher-forced decode positions at batch "
+            f"1 through the captured step {dec_s:.1f} s "
+            f"({1e3 * dec_s / T:.2f} ms a position)")
+        del cache, p
+    del params
+    _lm_free()
+    bf, f32 = logits["bf16"], logits["f32"]
+    checks, gates = {}, []
+    for what, (a, b), (atol, rtol), gate in (
+            ("bf16 decode vs bf16 forward", bf, (LM_FULL_ATOL, LM_RTOL),
+             True),
+            ("f32 decode vs f32 forward", f32, (LM_F32_ATOL, LM_F32_RTOL),
+             True),
+            ("bf16 decode vs f32 forward", (bf[0], f32[1]),
+             (LM_FULL_ATOL, LM_RTOL), False),
+            ("bf16 forward vs f32 forward", (bf[1], f32[1]),
+             (LM_FULL_ATOL, LM_RTOL), False)):
+        segs = _lm_compare(a, b, ring, atol, rtol)
+        checks[what] = [e for e, _, _ in segs]
+        log(f"    {what}: worst |logit error| {segs[0][0]:.5f} before "
+            f"position {ring}, {segs[1][0]:.5f} from {ring} on (the "
+            f"{ring}-row ring wraps); argmax equal at {segs[0][2]} / "
+            f"{ring} and {segs[1][2]} / {T - ring}" + (
+                f"; limit atol {atol} / rtol {rtol}" if gate else ""))
+        if gate:
+            gates += [(ex <= 0, f"{LM_FULL_ARCH} {what} {side} the wrap: "
+                       f"worst |error| {err}, over atol {atol} / rtol "
+                       f"{rtol}")
+                      for (err, ex, _), side in zip(segs, ("before",
+                                                           "after"))]
+    for ok, what in gates:
+        require(ok, what)
+    rows["wrap"] = checks
+    del logits, bf, f32
+    _lm_free()
+    return rows
+
+
+def _lm_published(arch):
+    """One configuration at its published width (depth cut where one card
+    cannot hold it): prefill with the encoder or patch path, then
+    ``serve``'s loop (the prompt step by step, ``LM_STEPS`` greedy steps
+    through ``make_serve_step``; Whisper cross-attends to the all-zero
+    cross cache, as ``serve`` does)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.train.train_step import make_prefill
+    full = get_config(arch)
+    cfg = _lm_cut(full)
+    api = build(cfg)
+    gen_t = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    params = api.init_params(gen_t)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, P = LM_BATCH, LM_PROMPT
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, P), generator=gen_t,
+                                     device=DEVICE)}
+    what = f"{P} tokens"
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(B, cfg.n_frames, cfg.d_model,
+                                      generator=gen_t, device=DEVICE
+                                      ).to(torch.bfloat16)
+        what += f" + {cfg.n_frames} frames"
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(B, cfg.n_patches, cfg.d_model,
+                                       generator=gen_t, device=DEVICE
+                                       ).to(torch.bfloat16)
+        what += f" + {cfg.n_patches} patches"
+    prefill = make_prefill(api, P + LM_STEPS)
+    pre_ms, (h, pcache) = cuda_ms(lambda: prefill(params, batch), reps=3,
+                                  warmup=1)
+    require(_lm_all_finite(h) and _lm_all_finite(pcache),
+            f"{arch}: prefill is not finite")
+    del pcache
+    toks, times, cache, routed = _lm_generate(
+        api, params, batch["tokens"].cpu().numpy(), LM_STEPS)
+    require(toks.shape == (B, LM_STEPS) and bool(
+        ((toks >= 0) & (toks < cfg.vocab)).all()) and _lm_all_finite(cache),
+        f"{arch}: decode is not finite")
+    ms = statistics.median(times)
+    bound = _lm_bound_ms(params, cache, routed)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers"
+             if cfg.n_layers != full.n_layers else f"{cfg.n_layers} layers")
+    moe = ""
+    if routed:
+        every, one = _lm_expert_bytes(params)
+        moe = (f" ({routed:.1f} routed experts a step over its MoE layers;"
+               f" every expert, as the local path reads them, "
+               f"{_lm_bound_ms(params, cache, every / one):.3f} ms)")
+    log(f"  {arch} ({depth}, {n_params / 1e9:.3f} B parameters, drawn in "
+        f"{init_s:.2f} s): prefill of {B} x ({what}) {pre_ms:.2f} ms; "
+        f"decode step of generate at batch {B} {ms:.3f} ms (median of "
+        f"{len(times)}, {min(times):.3f}-{max(times):.3f}); bound "
+        f"{bound:.3f} ms{moe}, {ms / bound:.1f}x; finite")
+    del params, cache, batch, h
+    _lm_free()
+    return {"arch": arch, "layers": cfg.n_layers, "of": full.n_layers,
+            "prefill_ms": pre_ms, "decode_ms": ms, "bound_ms": bound,
+            "routed": routed}
+
+
+def lm_card_vs_cpu(arch, device=None):
+    """``reduced(cfg)`` of ``arch`` on the same weights: prefill and one
+    decode step from ``init_cache`` on ``device`` (``DEVICE`` by default)
+    against the same calls on the CPU (cuBLAS rounds its bf16 products otherwise). Returns one
+    row per output, (kind, worst |error|, the CPU output's RMS, limit):
+    the logits, prefill's hidden state, every cache leaf; the limit is
+    ``LM_CARD_FRAC[kind]`` of the RMS, at most ``LM_ATOL_MAX``. Also the
+    check of ``tests/test_torch_lm_cuda.py``."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+    from repro_torch.models.lm import tree_leaves, tree_map
+    device = DEVICE if device is None else device
+    cfg = reduced(get_config(arch))
+    api = build(cfg)
+    params = api.init_params(torch.Generator().manual_seed(4))
+    gen = torch.Generator().manual_seed(4)
+    B, S = 2, 16
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(B, cfg.n_frames, cfg.d_model,
+                                      generator=gen)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(B, cfg.n_patches, cfg.d_model,
+                                       generator=gen)
+    outs = []
+    for dev in ("cpu", device):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            h, cache = api.prefill(p, b, S + 4)
+            logits, new = api.decode_step(
+                p, api.init_cache(B, S + 4, device=dev), b["tokens"][:, :1],
+                S)
+        outs.append([("logits", logits), ("hidden", h)]
+                    + [("cache", t) for t in tree_leaves((cache, new))])
+    rows = []
+    for (kind, want), (_, got) in zip(*outs):
+        got, want = got.float().cpu(), want.float()
+        require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                f"{arch} reduced: card output {len(rows)} malformed")
+        rms = float(want.pow(2).mean().sqrt())
+        rows.append((kind, float((got - want).abs().max()), rms,
+                     min(LM_CARD_FRAC[kind] * rms, LM_ATOL_MAX)))
+    return rows
+
+
+def phase_lm():
+    """The LM / Whisper serving path on the card (no kernel of the port
+    runs on it: the LM stack has no TPU kernel)."""
+    import torch
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  card: {card_line()}; {free / 1e9:.1f} of {total / 1e9:.1f} GB "
+        f"free")
+    reset_launch_counts()
+    with torch.inference_mode():
+        full = _lm_full_width()
+        rows = [_lm_published(a) for a in ARCH_IDS if a != LM_FULL_ARCH]
+    card = {a: lm_card_vs_cpu(a) for a in ARCH_IDS}
+    worst = {}
+    for a, rs in card.items():
+        worst[a] = {k: max((err / rms if rms else 0.0, err)
+                           for kind, err, rms, _ in rs if kind == k)
+                    for k in LM_CARD_FRAC}
+    log("  reduced configs, card against CPU on the same weights (worst "
+        "|error| / RMS (|error|) of the decode logits, prefill's hidden "
+        "state and every cache leaf; limits " + ", ".join(
+            f"{k} {f} of the RMS" for k, f in LM_CARD_FRAC.items())
+        + f", at most {LM_ATOL_MAX}): " + "; ".join(
+            f"{a} " + " / ".join(f"{r:.2e} ({e:.2e})" for r, e in w.values())
+            for a, w in worst.items()))
+    lc = launch_counts()
+    log(f"  launches of the port's CUDA kernels on the LM path: "
+        f"{sum(lc.values())} (the LM stack has no TPU kernel)")
+    wall = time.perf_counter() - t0
+    log(f"  phase 3h wall time {wall:.1f} s")
+    for a, rs in card.items():
+        for i, (kind, err, rms, limit) in enumerate(rs):
+            require(err <= limit, f"{a} reduced: card != CPU in output {i} "
+                    f"({kind}): |error| {err} over {limit}")
+    return {"full": full, "rows": rows, "card_vs_cpu": worst, "wall": wall}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4
 # ---------------------------------------------------------------------------
 
@@ -2872,6 +3367,10 @@ def main(argv=None) -> int:
     log(f"phase 3g: multi-device jobs, the sharded index and the launched "
         f"jobs ({time.perf_counter() - t0:.1f} s)")
     mp = phase_multi(main_out)
+    log(f"phase 3h: the LM / Whisper serving path, {LM_FULL_ARCH} at full "
+        f"width and the other nine configurations "
+        f"({time.perf_counter() - t0:.1f} s)")
+    phase_lm()
     log("profile: device time by kernel")
     phase_profile(main_out, kp, cp, tp, serving=True)
     if args.stop_after < 4:

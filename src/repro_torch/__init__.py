@@ -10,14 +10,24 @@ It follows the reference package's layer map, one directory per layer:
   classify/  1-NN evaluation, the kernel SVM, meta-parameter selection,
              nearest-centroid classification
   cluster/   soft-SP-DTW barycenters, k-means and centroid models
-  train/     the in-house AdamW the barycenters use
+  train/     the in-house AdamW the barycenters use; ``train_step``'s
+             ``make_serve_step`` / ``make_prefill``
   data/      offline synthetic-UCR datasets (the reference's generators)
              and the sequence pipeline
   monitor/   anomaly scoring, drift detection and the dataset map over
              the sketch tier
   launch/    single-host serving: ``SearchEngine`` and ``stream_search``,
              the background ``Learner`` publishing versioned snapshots
-             (``core.snapshot``), and the load-shape scenarios
+             (``core.snapshot``), and the load-shape scenarios; the
+             multi-device jobs; ``serve``, the LM / Whisper decode loop
+  models/    the LM zoo's serving path: ``config`` (``ModelConfig``),
+             ``layers`` (norms, interleaved RoPE, chunked GQA attention),
+             ``flash`` (its forward, for the training path), ``mamba``,
+             ``moe`` (local path), ``lm`` (dense / MLA + MoE / Mamba /
+             hybrid / VLM decoders), ``whisper``, ``registry``
+             (``build(cfg)``: ``init_params``, ``prefill``,
+             ``decode_step``, ``init_cache``)
+  configs/   the ten published configurations and ``reduced(cfg)``
 
 and imports neither ``jax`` nor ``repro``. The entry point is the fitted
 engine:
@@ -35,7 +45,11 @@ answers batches, ``SearchEngine(None, refresh=store)`` adopts the
 snapshots a ``launch.learner.Learner`` publishes to a ``SnapshotStore``.
 
 ``convert`` carries a fitted reference engine's state (and centroid
-model) across.
+model) across, and a reference LM's parameters.
+
+The LM stack serves from ``repro_torch.launch.serve.serve(arch, ...)``
+(``python -m repro_torch.launch.serve --arch gemma3-4b``) or through
+``models.build(cfg)``.
 """
 from .core import (ALL_MEASURES, BlockSparsePaths, CorpusIndex, Measure,
                    MeasureSpec, SimilarityEngine, SparsePaths,

@@ -13,7 +13,8 @@ draws have no torch twin, so a port engine built from that state
 searches on the reference's anchors, not on its own.
 
 ``centroid_model_from_reference`` carries a fitted centroid model
-(centroids, labels, medoids) across the same way.
+(centroids, labels, medoids) across the same way, and
+``lm_params_from_reference`` an LM's or Whisper's parameter pytree.
 
 ``state_from_reference`` reads the arrays off any object shaped like the
 reference's ``SimilarityEngine`` (attributes ``spec``, ``T``, ``sp``,
@@ -148,3 +149,29 @@ def centroid_model_from_reference(model, device=None):
 def engine_from_reference(engine, device=None) -> SimilarityEngine:
     """``engine_from_state(state_from_reference(engine), device)``."""
     return engine_from_state(state_from_reference(engine), device)
+
+
+def lm_params_from_reference(params, device=None):
+    """The port's parameter pytree (LM or Whisper; also a cache pytree)
+    for the reference's, each leaf read through ``numpy.asarray``, on
+    ``device`` (default ``cuda``). A bfloat16 leaf (``ml_dtypes``, which
+    ``torch.from_numpy`` refuses) goes through float32, which holds every
+    bfloat16 value exactly; other dtypes keep theirs."""
+    from repro_torch.core.engine import resolve_device
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                torch.bfloat16).to(dev)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return leaf(t)
+
+    return walk(params)

@@ -23,8 +23,11 @@
   cluster.py      the distributed barycenter job
                   (``python -m repro_torch.launch.cluster``)
 
+  serve.py        the LM / Whisper greedy decode loop (``serve``,
+                  ``generate``, ``python -m repro_torch.launch.serve``)
+
 The jobs run under ``python -m torch.distributed.run`` (``--backend
-nccl|gloo``) or as one rank without it. The LM slice's launchers
-(``train``, ``serve``, ``dryrun`` and the XLA compile probes) are not
-here.
+nccl|gloo``) or as one rank without it. The LM trainer (``train``) and
+the XLA compile probes (``dryrun`` and its shape helpers) are not here
+yet.
 """

@@ -1,0 +1,148 @@
+"""Shared building blocks: norms, RoPE, chunked attention, gated MLP (the
+port of ``repro.models.layers``).
+
+Everything is functional (parameters passed explicitly, stacked over the
+groups by the callers). Attention streams KV in chunks with an online
+softmax, so the (S x S) score matrix is never built beyond one chunk;
+sliding-window locality is a mask on the same loop. The arithmetic keeps
+the reference's dtypes step by step: ``q * scale`` in the input dtype,
+scores and accumulators in float32, probabilities cast to V's dtype before
+the second product, the additive ``NEG_INF`` mask.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1.0e30
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """RMS norm scaled by ``1 + scale`` (the scales are zero-initialised),
+    computed in float32 and cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Interleaved (rotate-every-two) RoPE: pairs are (2i, 2i + 1), not the
+    half-split layout. Frequencies and angles in float32, the result cast
+    back to ``x``'s dtype. x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=x.device) / half
+    freqs = torch.pow(theta, exps)          # float32: theta ** exps
+    ang = positions[..., :, None, None].to(torch.float32) * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x2 = x.reshape(x.shape[:-1] + (half, 2))
+    xe, xo = x2[..., 0], x2[..., 1]
+    re = xe * cos - xo * sin
+    ro = xe * sin + xo * cos
+    return torch.stack([re, ro], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def scale_in(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x * scale`` in ``x``'s dtype with the scale first rounded to that
+    dtype, as jnp does with a Python scalar."""
+    return x * float(torch.tensor(scale, dtype=x.dtype))
+
+
+def kv_chunk_len(Skv: int, kv_chunk: int) -> int:
+    """The KV chunk: ``kv_chunk`` where it divides Skv, else one chunk."""
+    return kv_chunk if Skv % kv_chunk == 0 else Skv
+
+
+def chunk_bias(Sq: int, ck: int, ci: int, q_offset, causal: bool,
+               window: Optional[int], kv_len: Optional[torch.Tensor],
+               device) -> torch.Tensor:
+    """The additive float32 mask of KV chunk ``ci``, broadcastable to the
+    scores (B, Sq, Hkv, G, ck)."""
+    q_pos = q_offset + torch.arange(Sq, device=device)
+    kv_pos = ci * ck + torch.arange(ck, device=device)
+    mask = torch.ones((Sq, ck), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - kv_pos[None, :] < window
+    if kv_len is not None:
+        mask = mask[None] & (kv_pos[None, None, :] < kv_len[:, None, None])
+        mask = mask[:, :, None, None, :]
+    else:
+        mask = mask[None, :, None, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(mask, zero, torch.full_like(zero, NEG_INF))
+
+
+def online_softmax(qh, k, v, ck: int, bias_of):
+    """The chunk loop both attentions share. qh: (B, Sq, Hkv, G, hd),
+    already scaled; k: (B, Skv, Hkv, hd); v: (B, Skv, Hkv, dv);
+    ``bias_of(ci)`` the mask of chunk ci. Returns the float32 running max
+    m, normaliser l and accumulator acc."""
+    B, Sq, Hkv, G, _ = qh.shape
+    dv = v.shape[-1]
+    qf = qh.float()
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32,
+                   device=qh.device)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=qh.device)
+    acc = torch.zeros((B, Sq, Hkv, G, dv), dtype=torch.float32,
+                      device=qh.device)
+    for ci in range(k.shape[1] // ck):
+        kci = k[:, ci * ck:(ci + 1) * ck]
+        vci = v[:, ci * ck:(ci + 1) * ck]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kci.float()) + bias_of(ci)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(vci.dtype).float(), vci.float())
+        m = m_new
+    return m, l, acc
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              *, causal: bool = True,
+              window: Optional[int] = None,
+              q_offset=0,
+              kv_chunk: int = 1024,
+              kv_len: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax chunked attention with GQA and an optional sliding
+    window.
+
+    q: (B, Sq, Hq, hd);  k: (B, Skv, Hkv, hd);  v: (B, Skv, Hkv, dv)
+    (dv may differ from hd — MLA). Hq % Hkv == 0; the query heads of one
+    KV head are adjacent (``Hq`` reshaped to ``(Hkv, G)``).
+    q_offset: absolute position of q[0] (decode: current position).
+    kv_len: optional (B,) valid KV length (decode with a ring or partial
+    cache). Returns (B, Sq, Hq, dv) in q's dtype.
+    """
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    G = Hq // Hkv
+    scale = scale if scale is not None else hd ** -0.5
+    qh = scale_in(q, scale).reshape(B, Sq, Hkv, G, hd)
+    ck = kv_chunk_len(Skv, kv_chunk)
+    m, l, acc = online_softmax(
+        qh, k, v, ck, lambda ci: chunk_bias(Sq, ck, ci, q_offset, causal,
+                                            window, kv_len, q.device))
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, Sq, Hq, dv).to(q.dtype)
+
+
+def gated_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down

@@ -1,0 +1,151 @@
+"""Mamba-1 selective SSM block (falcon-mamba / jamba mixers; the port of
+``repro.models.mamba``).
+
+The selective scan h_t = Abar_t h_{t-1} + Bbar_t x_t is evaluated in
+chunks: inside a chunk an associative scan in the reference's own
+association (``associative_scan``, the recursive odd / even scheme of
+``jax.lax.associative_scan``; a sequential loop would round differently),
+and across chunks a loop carrying h. The (B, S, d_inner, d_state)
+discretized tensors only materialize per chunk.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# the scan's chunk length (decode runs at chunk 1)
+CHUNK = 16
+
+
+def _ssm_combine(e1, e2):
+    a1, b1 = e1
+    a2, b2 = e2
+    return a2 * a1, a2 * b1 + b2
+
+
+def _interleave(a, b, axis):
+    """Elements of ``a`` at the even positions of ``axis``, ``b``'s at the
+    odd ones (len(a) == len(b) or len(b) + 1)."""
+    n = a.shape[axis] + b.shape[axis]
+    shape = list(a.shape)
+    shape[axis] = n
+    out = a.new_empty(shape)
+    idx = [slice(None)] * a.dim()
+    idx[axis] = slice(0, n, 2)
+    out[tuple(idx)] = a
+    idx[axis] = slice(1, n, 2)
+    out[tuple(idx)] = b
+    return out
+
+
+def associative_scan(fn, elems, axis: int):
+    """Inclusive scan of the tuple ``elems`` along ``axis`` with the
+    associative ``fn(earlier, later)``, combining in the same order as
+    ``jax.lax.associative_scan``."""
+    def sl(x, start, stop=None, step=1):
+        idx = [slice(None)] * x.dim()
+        idx[axis] = slice(start, stop, step)
+        return x[tuple(idx)]
+
+    def scan(elems):
+        n = elems[0].shape[axis]
+        if n < 2:
+            return elems
+        reduced = fn(tuple(sl(e, 0, -1, 2) for e in elems),
+                     tuple(sl(e, 1, None, 2) for e in elems))
+        odd = scan(reduced)
+        if n % 2 == 0:
+            even = fn(tuple(sl(e, 0, -1) for e in odd),
+                      tuple(sl(e, 2, None, 2) for e in elems))
+        else:
+            even = fn(tuple(odd), tuple(sl(e, 2, None, 2) for e in elems))
+        even = tuple(torch.cat([sl(e, 0, 1), r], dim=axis)
+                     for e, r in zip(elems, even))
+        return tuple(_interleave(e, o, axis) for e, o in zip(even, odd))
+
+    return scan(tuple(elems))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): no linear threshold, in
+    x's dtype."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _conv1d_causal(x, w, b, state=None):
+    """Depthwise causal conv, a sum over the taps in x's dtype.
+    x: (B, S, di); w: (dc, di); b: (di,).
+
+    state: optional (B, dc-1, di) left context (decode); returns y and the
+    new state (the last dc-1 inputs).
+    """
+    dc = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], dc - 1, x.shape[2]))
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, k:k + x.shape[1], :] * w[k] for k in range(dc))
+    new_state = xp[:, -(dc - 1):, :]
+    return y + b, new_state
+
+
+def mamba_mixer(x: torch.Tensor, p: dict, *, d_state: int,
+                chunk: int = CHUNK,
+                h0: torch.Tensor | None = None,
+                conv0: torch.Tensor | None = None,
+                return_state: bool = False):
+    """x: (B, S, d) -> (B, S, d). Parameters p:
+
+      in_x (d, di), in_z (d, di), conv_w (dc, di), conv_b (di,),
+      w_B (di, ds), w_C (di, ds), dt_down (di, dtr), dt_up (dtr, di),
+      dt_bias (di,), A_log (di, ds), D (di,), out (di, d)
+
+    With ``return_state`` also returns (h (B, di, ds) float32, conv state
+    (B, dc-1, di)).
+    """
+    B, S, d = x.shape
+    di = p["in_x"].shape[1]
+    xs = x @ p["in_x"]                       # (B, S, di)
+    z = x @ p["in_z"]
+    xs, conv_state = _conv1d_causal(xs, p["conv_w"], p["conv_b"], conv0)
+    xs = F.silu(xs)
+
+    Bt = xs @ p["w_B"]                       # (B, S, ds)
+    Ct = xs @ p["w_C"]
+    dt = softplus((xs @ p["dt_down"]) @ p["dt_up"] + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())       # (di, ds)
+
+    ck = chunk if S % chunk == 0 else S
+    h = (x.new_zeros((B, di, d_state), dtype=torch.float32) if h0 is None
+         else h0.float())
+    ys = []
+    for c0 in range(0, S, ck):
+        xc, dtc = xs[:, c0:c0 + ck], dt[:, c0:c0 + ck]
+        bc, cc = Bt[:, c0:c0 + ck], Ct[:, c0:c0 + ck]
+        dtf = dtc.float()
+        abar = torch.exp(dtf[..., None] * A)                 # (B,ck,di,ds)
+        bbar = (dtf[..., None] * bc[:, :, None, :].float()
+                * xc[..., None].float())
+        aa, bb = associative_scan(_ssm_combine, (abar, bbar), axis=1)
+        hs = aa * h[:, None] + bb                            # (B,ck,di,ds)
+        ys.append(torch.einsum("bcds,bcs->bcd", hs, cc.float()))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1)
+    y = (y + xs.float() * p["D"]).to(x.dtype)
+    out = (y * F.silu(z)) @ p["out"]
+    if return_state:
+        return out, (h, conv_state)
+    return out
+
+
+def mamba_decode_step(x: torch.Tensor, p: dict, state, *, d_state: int):
+    """Single-token decode, the mixer at chunk 1. x: (B, 1, d);
+    state = (h (B,di,ds), conv (B,dc-1,di))."""
+    return mamba_mixer(x, p, d_state=d_state, chunk=1, h0=state[0],
+                       conv0=state[1], return_state=True)
+
+
+def init_mamba_state(B: int, di: int, d_state: int, d_conv: int, dtype,
+                     device=None):
+    return (torch.zeros((B, di, d_state), dtype=torch.float32,
+                        device=device),
+            torch.zeros((B, d_conv - 1, di), dtype=dtype, device=device))

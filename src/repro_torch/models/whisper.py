@@ -1,0 +1,175 @@
+"""Whisper-medium style encoder-decoder backbone, audio frontend stubbed
+(the port of ``repro.models.whisper``, serving path).
+
+The frontend is a stub: callers pass precomputed frame embeddings (B,
+n_frames, d). The backbone: a bidirectional encoder, a causal decoder
+with cross-attention, GELU MLPs (the tanh approximation, ``jax.nn.gelu``'s
+default), RoPE in place of learned positions. The parameter names and
+stacked layout are the reference's.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import attention, rms_norm, rope
+from .lm import (DTYPE, as_pos, act_dtype, draw_leaf, group_slice,
+                 logits_of, map_schema, positions_at, valid_rows,
+                 write_rows)
+
+
+def _attn_block(d, H, hd, prefix=""):
+    return {
+        prefix + "norm": ((d,), 0.0),
+        prefix + "wq": ((d, H, hd), 0.02),
+        prefix + "wk": ((d, H, hd), 0.02),
+        prefix + "wv": ((d, H, hd), 0.02),
+        prefix + "wo": ((H, hd, d), 0.02),
+    }
+
+
+def _mlp_block(d, ff):
+    return {
+        "norm2": ((d,), 0.0),
+        "w_up": ((d, ff), 0.02),
+        "w_down": ((ff, d), 0.02),
+    }
+
+
+def whisper_schema(cfg: ModelConfig):
+    d, H, hd, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    enc_layer = {**_attn_block(d, H, hd), **_mlp_block(d, ff)}
+    dec_layer = {**_attn_block(d, H, hd),
+                 **_attn_block(d, H, hd, prefix="x_"),
+                 **_mlp_block(d, ff)}
+
+    def stack(sch, n):
+        return {k: ((n,) + shp, sc) for k, (shp, sc) in sch.items()}
+
+    return {
+        "embed": ((cfg.vocab, d), 0.02),
+        "enc_groups": [stack(enc_layer, cfg.n_enc_layers)],
+        "enc_norm": ((d,), 0.0),
+        "groups": [stack(dec_layer, cfg.n_groups)],
+        "final_norm": ((d,), 0.0),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=DTYPE):
+    """Seeded parameters on ``generator.device`` (the port's own draws)."""
+    return map_schema(whisper_schema(cfg),
+                      lambda shp, sc: draw_leaf(shp, sc, generator, dtype))
+
+
+def _self_attn(x, p, causal, positions, prefix="", kv_override=None,
+               cache=None, pos=None):
+    """Shared attention block; ``kv_override`` is the encoder memory
+    (cross-attention, no RoPE). With a cache (decode) k and v are written
+    at ``pos`` in place. Returns (out, self cache or None)."""
+    xn = rms_norm(x, p[prefix + "norm"])
+    q = torch.einsum("bsd,dhk->bshk", xn, p[prefix + "wq"])
+    src = kv_override if kv_override is not None else xn
+    k = torch.einsum("bsd,dhk->bshk", src, p[prefix + "wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p[prefix + "wv"])
+    if kv_override is None:  # RoPE only for self-attention
+        q = rope(q, positions, 10_000.0)
+        kpos = (torch.arange(src.shape[1], device=x.device) if cache is None
+                else positions)
+        k = rope(k, kpos, 10_000.0)
+    if cache is not None:                      # decode: append + full cache
+        write_rows(cache["k"], k, pos)
+        write_rows(cache["v"], v, pos)
+        kv_len = valid_rows(pos, cache["k"].shape[1], x.shape[0])
+        o = attention(q, cache["k"], cache["v"], causal=False, kv_len=kv_len)
+    else:
+        o = attention(q, k, v, causal=causal)
+    out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p[prefix + "wo"])
+    return x + out, cache
+
+
+def _mlp(x, p):
+    h = F.gelu((rms_norm(x, p["norm2"]) @ p["w_up"]).float(),
+               approximate="tanh").to(x.dtype)
+    return x + h @ p["w_down"]
+
+
+def encode(params, frames, cfg: ModelConfig):
+    """frames: (B, F, d) stubbed frontend output -> encoder states."""
+    x = frames.to(act_dtype(params))
+    positions = torch.arange(x.shape[1], device=x.device)
+    enc = params["enc_groups"][0]
+    for g in range(cfg.n_enc_layers):
+        gp = group_slice(enc, g)
+        x, _ = _self_attn(x, gp, causal=False, positions=positions)
+        x = _mlp(x, gp)
+    return rms_norm(x, params["enc_norm"])
+
+
+def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=DTYPE, *,
+               device):
+    """Self-attention cache of S_max rows and an all-zero cross cache of
+    n_frames rows (``prefill`` fills it from the encoder)."""
+    G, H, hd = cfg.n_groups, cfg.n_heads, cfg.head_dim
+
+    def kv(s):
+        return {"k": torch.zeros((G, B, s, H, hd), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((G, B, s, H, hd), dtype=dtype,
+                                 device=device)}
+
+    return {"self": kv(S_max), "cross": kv(cfg.n_frames)}
+
+
+def prefill(params, frames, tokens, cfg: ModelConfig, S_cache: int):
+    """Encode audio and consume the prompt; returns (last hidden, cache):
+    the self cache padded to S_cache rows, the cross cache the encoder's
+    keys and values."""
+    enc = encode(params, frames, cfg)
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(act_dtype(params))
+    positions = torch.arange(S, device=x.device)
+    pad = S_cache - S
+    caches = {"self": {"k": [], "v": []}, "cross": {"k": [], "v": []}}
+    for g in range(cfg.n_groups):
+        gp = group_slice(params["groups"][0], g)
+        xn = rms_norm(x, gp["norm"])
+        k = rope(torch.einsum("bsd,dhk->bshk", xn, gp["wk"]), positions,
+                 10_000.0)
+        v = torch.einsum("bsd,dhk->bshk", xn, gp["wv"])
+        caches["self"]["k"].append(F.pad(k, (0, 0, 0, 0, 0, pad)))
+        caches["self"]["v"].append(F.pad(v, (0, 0, 0, 0, 0, pad)))
+        caches["cross"]["k"].append(
+            torch.einsum("bsd,dhk->bshk", enc, gp["x_wk"]))
+        caches["cross"]["v"].append(
+            torch.einsum("bsd,dhk->bshk", enc, gp["x_wv"]))
+        x, _ = _self_attn(x, gp, causal=True, positions=positions)
+        x, _ = _self_attn(x, gp, causal=False, positions=positions,
+                          prefix="x_", kv_override=enc)
+        x = _mlp(x, gp)
+    x = rms_norm(x, params["final_norm"])
+    cache = {part: {k: torch.stack(v) for k, v in kv.items()}
+             for part, kv in caches.items()}
+    return x[:, -1, :], cache
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig):
+    """token: (B, 1) int; pos an int or a 0-d tensor.
+    Returns (logits (B, V) float32, cache), the self cache updated in
+    place; cross-attention reads the cache's static encoder keys and
+    values."""
+    pos = as_pos(pos, token.device)
+    x = params["embed"][token].to(act_dtype(params))
+    positions = positions_at(pos, 1)
+    for g in range(cfg.n_groups):
+        gp = group_slice(params["groups"][0], g)
+        x, _ = _self_attn(x, gp, causal=False, positions=positions,
+                          cache=group_slice(cache["self"], g), pos=pos)
+        xn = rms_norm(x, gp["x_norm"])
+        q = torch.einsum("bsd,dhk->bshk", xn, gp["x_wq"])
+        cc = group_slice(cache["cross"], g)
+        o = attention(q, cc["k"], cc["v"], causal=False)
+        x = x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), gp["x_wo"])
+        x = _mlp(x, gp)
+    x = rms_norm(x, params["final_norm"])
+    return logits_of(params, x[:, 0, :]), cache

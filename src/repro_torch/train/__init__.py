@@ -1,2 +1,3 @@
-"""repro_torch.train — the in-house optimizer the centroid fits use."""
+"""repro_torch.train — the in-house optimizer the centroid fits use, and
+the LM serve-step factories (``train_step``)."""
 from .optimizer import AdamState, AdamW

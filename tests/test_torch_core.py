@@ -212,6 +212,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "import repro_torch.train.optimizer;"
             "import repro_torch.launch.shard_index, repro_torch.launch.mesh;"
             "import repro_torch.launch.gram, repro_torch.launch.cluster;"
+            "import repro_torch.configs, repro_torch.models.lm;"
+            "import repro_torch.models.whisper, repro_torch.models.registry;"
+            "import repro_torch.models.flash, repro_torch.models.moe;"
+            "import repro_torch.models.mamba, repro_torch.train.train_step;"
+            "import repro_torch.launch.serve;"
             "import chip_smoke;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"

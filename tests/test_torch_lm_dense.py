@@ -1,0 +1,42 @@
+"""PyTorch port, the dense and VLM decoder LMs (gemma3-4b, gemma3-12b,
+yi-6b, minicpm-2b, pixtral-12b) at ``reduced`` size against the JAX
+reference on the CPU, on the reference's own bf16 weights
+(``convert.lm_params_from_reference``): prefill's last hidden state and
+every cache leaf, one decode step from ``init_cache`` (logits and cache),
+and the forward pass's logits, each within the fraction of its RMS
+that ``torch_lm_helpers.FRAC`` states.
+"""
+import pytest
+
+from torch_lm_helpers import PortCase, close, reference_case, to_numpy
+
+ARCHS = ("gemma3-4b", "gemma3-12b", "yi-6b", "minicpm-2b", "pixtral-12b")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def case(request):
+    ref = reference_case(request.param)
+    return ref, PortCase(request.param, ref)
+
+
+def test_prefill_hidden_and_cache(case):
+    ref, port = case
+    h, cache = port.prefill()
+    close(h.float(), ref["h"], "hidden")
+    got = to_numpy(cache)
+    assert [a.shape for a in got] == [a.shape for a in ref["cache"]]
+    for g, w in zip(got, ref["cache"]):
+        close(g, w, "cache")
+
+
+def test_decode_step_from_init_cache(case):
+    ref, port = case
+    logits, cache = port.decode()
+    close(logits, ref["logits"], "logits")
+    for g, w in zip(to_numpy(cache), ref["new_cache"]):
+        close(g, w, "cache")
+
+
+def test_forward(case):
+    ref, port = case
+    close(port.forward(), ref["forward"], port.forward_kind)
