@@ -13,8 +13,10 @@ draws have no torch twin, so a port engine built from that state
 searches on the reference's anchors, not on its own.
 
 ``centroid_model_from_reference`` carries a fitted centroid model
-(centroids, labels, medoids) across the same way, and
-``lm_params_from_reference`` an LM's or Whisper's parameter pytree.
+(centroids, labels, medoids) across the same way,
+``lm_params_from_reference`` an LM's or Whisper's parameter pytree, and
+``adam_state_from_reference`` the LM trainer's optimizer state (step,
+moments, master copy).
 
 ``state_from_reference`` reads the arrays off any object shaped like the
 reference's ``SimilarityEngine`` (attributes ``spec``, ``T``, ``sp``,
@@ -175,3 +177,17 @@ def lm_params_from_reference(params, device=None):
         return leaf(t)
 
     return walk(params)
+
+
+def adam_state_from_reference(state, device=None):
+    """The port's ``train.optimizer.AdamState`` for a reference one (a
+    named tuple step, m, v, master; master None without a master copy):
+    the step as an int, every other leaf through
+    ``lm_params_from_reference``, on ``device`` (default ``cuda``)."""
+    from repro_torch.train.optimizer import AdamState
+
+    def tree(t):
+        return None if t is None else lm_params_from_reference(t, device)
+
+    return AdamState(int(np.asarray(state.step)), tree(state.m),
+                     tree(state.v), tree(state.master))

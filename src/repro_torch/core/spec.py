@@ -98,3 +98,8 @@ class MeasureSpec:
     def replace(self, **changes) -> "MeasureSpec":
         """Functional update (specs are frozen)."""
         return dataclasses.replace(self, **changes)
+
+
+def spec(family: str = "spdtw", **kw) -> MeasureSpec:
+    """Shorthand factory: ``spec("spdtw", theta=2.0)``."""
+    return MeasureSpec(family=family, **kw)

@@ -90,6 +90,14 @@ _REGISTRY = {b.name: b for b in (
 _ALIASES = {"ref": "scan"}
 
 
+def register_backend(backend: Backend) -> None:
+    """Add (or replace) a backend record in the registry."""
+    unknown = set(backend.caps) - set(CAPABILITIES)
+    if unknown:
+        raise ValueError(f"unknown capabilities {sorted(unknown)}")
+    _REGISTRY[backend.name] = backend
+
+
 def get_backend(name: str) -> Backend:
     """Registry lookup by exact name (no aliasing, no fallback)."""
     if name not in _REGISTRY:
@@ -144,6 +152,16 @@ def _cached_plan(w_bytes: bytes, T: int, tile: int) -> BlockSparsePaths:
 def _ones_plan(T: int) -> BlockSparsePaths:
     """Fully dense plan for plain DTW, keyed on T alone."""
     return block_sparsify(np.ones((T, T), np.float32), tile=default_tile(T))
+
+
+def plan_cache_stats() -> dict:
+    """Hit / miss counters of the cached plan resolver (the evidence that
+    a plan is built once per distinct weight grid)."""
+    info = _cached_plan.cache_info()
+    ones = _ones_plan.cache_info()
+    return {"hits": info.hits + ones.hits,
+            "misses": info.misses + ones.misses,
+            "entries": info.currsize + ones.currsize}
 
 
 def resolve_plan(sp=None, bsp=None, weights=None, *,

@@ -25,9 +25,12 @@
 
   serve.py        the LM / Whisper greedy decode loop (``serve``,
                   ``generate``, ``python -m repro_torch.launch.serve``)
+  train.py        the LM / Whisper trainer on one device: checkpoints,
+                  resume, straggler log (``train``,
+                  ``python -m repro_torch.launch.train``)
 
 The jobs run under ``python -m torch.distributed.run`` (``--backend
-nccl|gloo``) or as one rank without it. The LM trainer (``train``) and
-the XLA compile probes (``dryrun`` and its shape helpers) are not here
+nccl|gloo``) or as one rank without it. The XLA compile probes
+(``dryrun`` and its shape helpers) and multi-rank training are not here
 yet.
 """

@@ -1,0 +1,132 @@
+"""Fault-tolerant LM / Whisper training driver on one device (the port of
+``repro.launch.train``).
+
+Deterministic resumable data (batch = f(seed, step), ``TokenPipeline``),
+async checkpoints with keep-last-k and integrity hashes, automatic resume
+from the newest complete checkpoint, and a straggler watchdog (a step
+slower than ``straggler_factor`` x the median so far is logged). The
+optimizer is AdamW under a cosine schedule with ``max(steps // 10, 1)``
+warm-up steps. The reference's mesh axes and int8 gradient sync belong to
+the multi-rank LM pieces: ``data_axis`` / ``model_axis`` other than 1
+raise.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
+      --steps 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b  # the card
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.engine import resolve_device
+from repro_torch.models import build
+from repro_torch.train.checkpoint import (CheckpointManager,
+                                          restore_checkpoint)
+from repro_torch.train.data import TokenPipeline
+from repro_torch.train.optimizer import AdamW, cosine_schedule
+from repro_torch.train.train_step import make_train_step
+
+DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+def to_device(batch, device):
+    """A ``TokenPipeline`` batch as tensors on ``device``: tokens int64,
+    patches and frames float32."""
+    return {k: torch.as_tensor(v, dtype=torch.long if k == "tokens"
+                               else torch.float32, device=device)
+            for k, v in batch.items()}
+
+
+def train(arch: str, steps: int = 20, use_reduced: bool = True,
+          ckpt_dir: str = DEFAULT_CKPT_DIR, batch: int = 8, seq: int = 64,
+          ckpt_every: int = 5, microbatch: int = 1, data_axis: int = 1,
+          model_axis: int = 1, seed: int = 0,
+          straggler_factor: float = 3.0, lr: float = 1e-3,
+          log_every: int = 1, device=None):
+    """Train ``arch`` (``reduced`` by default) from seeded weights, or
+    from the newest checkpoint in ``ckpt_dir``, up to step ``steps`` on
+    ``device`` (the card unless the caller names another). Returns the
+    losses of the steps this call ran."""
+    if data_axis != 1 or model_axis != 1:
+        raise NotImplementedError(
+            "data_axis / model_axis > 1 shard training over several "
+            "ranks: the multi-rank LM pieces (ROADMAP A4c)")
+    device = resolve_device(device)
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg)
+    api = build(cfg)
+    opt = AdamW(lr=cosine_schedule(lr, max(steps // 10, 1), steps))
+    step_fn = make_train_step(api, opt, microbatch=microbatch)
+
+    params = api.init_params(
+        torch.Generator(device=device).manual_seed(seed))
+    opt_state = opt.init(params)
+    mgr = CheckpointManager(ckpt_dir, keep_last=3)
+    start = 0
+    latest = mgr.latest_step()
+    if latest is not None:
+        state = restore_checkpoint(ckpt_dir, latest,
+                                   {"params": params, "opt": opt_state})
+        params, opt_state = state["params"], state["opt"]
+        start = latest
+        print(f"[resume] step {start} (elastic: mesh "
+              f"{data_axis}x{model_axis})", flush=True)
+
+    pipe = TokenPipeline(cfg, batch, seq, seed=seed)
+    losses, times = [], []
+    for step in range(start, steps):
+        # deterministic: resume-safe
+        b = to_device(pipe.batch_at(step), device)
+        t0 = time.time()
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        times.append(dt)
+        losses.append(loss)
+        med = float(np.median(times))
+        if len(times) > 3 and dt > straggler_factor * med:
+            print(f"[straggler] step {step}: {dt:.2f}s vs median "
+                  f"{med:.2f}s — flagged for rebalance", flush=True)
+        if step % log_every == 0:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"{dt * 1e3:.0f}ms", flush=True)
+        if (step + 1) % ckpt_every == 0 or step + 1 == steps:
+            mgr.save(step + 1, {"params": params, "opt": opt_state})
+    mgr.wait()
+    return losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--data-axis", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    losses = train(args.arch, args.steps, args.reduced, args.ckpt_dir,
+                   args.batch, args.seq, microbatch=args.microbatch,
+                   data_axis=args.data_axis, model_axis=args.model_axis,
+                   device=args.device)
+    print(json.dumps({"first_loss": losses[0], "last_loss": losses[-1]}))
+
+
+if __name__ == "__main__":
+    main()

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1.0e30
 
@@ -85,29 +86,34 @@ def chunk_bias(Sq: int, ck: int, ci: int, q_offset, causal: bool,
     return torch.where(mask, zero, torch.full_like(zero, NEG_INF))
 
 
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype attention's scores and sums are kept in: float32 for
+    bf16 and float32 inputs (the reference's), float64 for float64."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def online_softmax(qh, k, v, ck: int, bias_of):
     """The chunk loop both attentions share. qh: (B, Sq, Hkv, G, hd),
     already scaled; k: (B, Skv, Hkv, hd); v: (B, Skv, Hkv, dv);
-    ``bias_of(ci)`` the mask of chunk ci. Returns the float32 running max
-    m, normaliser l and accumulator acc."""
+    ``bias_of(ci)`` the mask of chunk ci. Returns the running max m,
+    normaliser l and accumulator acc in ``acc_dtype(qh)``."""
     B, Sq, Hkv, G, _ = qh.shape
     dv = v.shape[-1]
-    qf = qh.float()
-    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32,
-                   device=qh.device)
-    l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=qh.device)
-    acc = torch.zeros((B, Sq, Hkv, G, dv), dtype=torch.float32,
-                      device=qh.device)
+    f = acc_dtype(qh)
+    qf = qh.to(f)
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=f, device=qh.device)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=f, device=qh.device)
+    acc = torch.zeros((B, Sq, Hkv, G, dv), dtype=f, device=qh.device)
     for ci in range(k.shape[1] // ck):
         kci = k[:, ci * ck:(ci + 1) * ck]
         vci = v[:, ci * ck:(ci + 1) * ck]
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kci.float()) + bias_of(ci)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kci.to(f)) + bias_of(ci)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bqhgk,bkhd->bqhgd", p.to(vci.dtype).float(), vci.float())
+            "bqhgk,bkhd->bqhgd", p.to(vci.dtype).to(f), vci.to(f))
         m = m_new
     return m, l, acc
 
@@ -146,3 +152,47 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gated_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def rematerialize(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``jax.checkpoint``) where autograd records it; a plain call
+    otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _chunk_nll(h, emb, t, m):
+    """Masked next-token NLL summed over one chunk: float32 logits of the
+    tied unembedding, logsumexp minus the gold logit."""
+    logits = (h @ emb.T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    return torch.sum((lse - gold) * m)
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, emb: torch.Tensor,
+                          targets: torch.Tensor, mask: torch.Tensor,
+                          s_chunk: int = 512) -> torch.Tensor:
+    """Mean next-token CE without materializing full (B, S, V) logits.
+
+    hidden: (B, S, d); emb: (V, d) tied unembedding; targets / mask:
+    (B, S), the mask float32. The sequence is cut into chunks of the
+    largest divisor of S that is at most ``s_chunk``; each chunk's float32
+    logits are recomputed in the backward (``rematerialize``), so autograd
+    keeps none of them. Returns the float32 mean over the mask's count (at
+    least 1).
+    """
+    S = hidden.shape[1]
+    ck = min(s_chunk, S)
+    while S % ck:          # largest divisor of S <= s_chunk (VLM: S=3840)
+        ck -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, ck):
+        m = mask[:, c0:c0 + ck]
+        tot = tot + rematerialize(_chunk_nll, hidden[:, c0:c0 + ck], emb,
+                                  targets[:, c0:c0 + ck], m)
+        cnt = cnt + torch.sum(m)
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -1,20 +1,26 @@
 """Generic decoder LM covering dense / GQA, MLA + MoE, Mamba, hybrid and VLM
-architectures (the port of ``repro.models.lm``, serving path).
+architectures (the port of ``repro.models.lm``).
 
 Parameter pytree, the reference's names and layout:
   { "embed": (V, d), "final_norm": (d,),
     "groups": [ per-pattern-position dict, every leaf stacked (G, ...) ] }
 
 Entry points:
+  train_loss(params, batch, cfg)              -> scalar loss
   forward_hidden(params, tokens, cfg)         -> (final hidden, aux loss)
   prefill(params, tokens, cfg, S_cache)       -> (last hidden, cache)
   decode_step(params, cache, token, pos, cfg) -> (logits, cache)
 
 The reference scans over the groups; here a Python loop indexes the
 stacked leaves. Its sharding constraints and barriers do nothing on one
-card and are not carried over. ``decode_step`` writes the new KV rows and
-states into the cache it is given (the reference donates its cache) and
-returns it.
+card and are not carried over. Attention without a cache goes through
+``flash.flash_attention`` (its forward is ``layers.attention``'s, its
+backward recomputes the probabilities), as in the reference.
+``forward_hidden`` rematerialises each group in the backward
+(``layers.rematerialize``, the reference's ``jax.checkpoint``).
+``decode_step`` writes the new KV rows and states into the cache it is
+given (the reference donates its cache) and returns it; nothing on the
+training path writes in place into a tensor autograd keeps.
 """
 from __future__ import annotations
 
@@ -22,8 +28,12 @@ from typing import Dict
 
 import torch
 
+from repro_torch.pytree import tree_leaves, tree_map
+
 from .config import LayerSpec, ModelConfig
-from .layers import attention, gated_mlp, rms_norm, rope
+from .flash import flash_attention
+from .layers import (attention, chunked_cross_entropy, gated_mlp,
+                     rematerialize, rms_norm, rope)
 from .mamba import init_mamba_state, mamba_decode_step, mamba_mixer
 from .moe import moe_ffn
 
@@ -190,23 +200,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=DTYPE):
                       lambda shp, sc: draw_leaf(shp, sc, generator, dtype))
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every tensor of a parameter or cache pytree
-    (dicts and lists)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def tree_leaves(tree) -> list:
-    """The tensors of a parameter or cache pytree, in order."""
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
 def param_bytes(tree) -> int:
     """Bytes of every leaf of a parameter or cache pytree."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
@@ -279,7 +272,7 @@ def _apply_attn(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
                       q_offset=pos, window=None)
         piece = cache
     else:
-        o = attention(q, k, v, causal=True, window=spec.window)
+        o = flash_attention(q, k, v, True, spec.window, 0, 1024, None)
         piece = {"k": k, "v": v}
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
     return x + out, piece
@@ -334,7 +327,7 @@ def _apply_mla(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rhd)],
                   dim=-1)
-    o = attention(q, k, v, causal=True, scale=(hd + rhd) ** -0.5)
+    o = flash_attention(q, k, v, True, None, 0, 1024, (hd + rhd) ** -0.5)
     out = torch.einsum("bshv,hvd->bsd", o.to(x.dtype), p["wo"])
     return x + out, {"ckv": ckv, "krope": krope}
 
@@ -403,17 +396,51 @@ def _inputs(params, tokens, patches):
     return x
 
 
+def unstack_groups(groups):
+    """Per group g, the list of its pattern positions' parameter dicts
+    (``torch.unbind`` views of the stacked leaves: the backward stacks
+    each leaf's gradient once, not a full-size buffer per group)."""
+    per_pos = [{k: v.unbind(0) for k, v in gp.items()} for gp in groups]
+    n = len(next(iter(per_pos[0].values()))) if per_pos[0] else 0
+    return [[{k: v[g] for k, v in pos.items()} for pos in per_pos]
+            for g in range(n)]
+
+
 def forward_hidden(params, tokens, cfg: ModelConfig, patches=None):
     """Token (+ optional VLM patch) embedding -> (final hidden states,
-    summed MoE aux loss)."""
+    summed MoE aux loss). Each group (all the pattern's layers of one
+    group) is recomputed in the backward."""
     x = _inputs(params, tokens, patches)
-    aux_t = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.n_groups):
-        for li, spec in enumerate(cfg.pattern):
-            x, _, aux = _apply_layer(
-                x, group_slice(params["groups"][li], g), spec, cfg)
+
+    def group_body(x, gps):
+        aux_t = torch.zeros((), dtype=torch.float32, device=x.device)
+        for gp, spec in zip(gps, cfg.pattern):
+            x, _, aux = _apply_layer(x, gp, spec, cfg)
             aux_t = aux_t + aux
+        return x, aux_t
+
+    aux_t = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gps in unstack_groups(params["groups"]):
+        x, aux = rematerialize(group_body, x, gps)
+        aux_t = aux_t + aux
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_t
+
+
+def train_loss(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):
+    """batch: {"tokens": (B, S+1) int, optional "patches": (B, Np, d)}.
+    The mean next-token cross-entropy over the text positions (targets
+    ``tokens[:, 1:]``, those < 0 masked out) plus ``aux_weight`` times the
+    MoE load-balance loss; a float32 scalar."""
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    patches = batch.get("patches")
+    x, aux = forward_hidden(params, inp, cfg, patches=patches)
+    if patches is not None:
+        x = x[:, patches.shape[1]:]   # loss on text positions only
+    mask = (tgt >= 0).float()
+    loss = chunked_cross_entropy(x, params["embed"], torch.clamp_min(tgt, 0),
+                                 mask)
+    return loss + aux_weight * aux
 
 
 def logits_of(params, h):

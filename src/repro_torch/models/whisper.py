@@ -1,11 +1,13 @@
 """Whisper-medium style encoder-decoder backbone, audio frontend stubbed
-(the port of ``repro.models.whisper``, serving path).
+(the port of ``repro.models.whisper``).
 
 The frontend is a stub: callers pass precomputed frame embeddings (B,
 n_frames, d). The backbone: a bidirectional encoder, a causal decoder
 with cross-attention, GELU MLPs (the tanh approximation, ``jax.nn.gelu``'s
 default), RoPE in place of learned positions. The parameter names and
-stacked layout are the reference's.
+stacked layout are the reference's. Attention without a cache goes
+through ``flash.flash_attention``; ``encode`` recomputes each encoder
+layer in the backward, and ``train_loss`` each decoder layer.
 """
 from __future__ import annotations
 
@@ -13,10 +15,12 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import attention, rms_norm, rope
+from .flash import flash_attention
+from .layers import (attention, chunked_cross_entropy, rematerialize,
+                     rms_norm, rope)
 from .lm import (DTYPE, as_pos, act_dtype, draw_leaf, group_slice,
-                 logits_of, map_schema, positions_at, valid_rows,
-                 write_rows)
+                 logits_of, map_schema, positions_at, unstack_groups,
+                 valid_rows, write_rows)
 
 
 def _attn_block(d, H, hd, prefix=""):
@@ -83,7 +87,7 @@ def _self_attn(x, p, causal, positions, prefix="", kv_override=None,
         kv_len = valid_rows(pos, cache["k"].shape[1], x.shape[0])
         o = attention(q, cache["k"], cache["v"], causal=False, kv_len=kv_len)
     else:
-        o = attention(q, k, v, causal=causal)
+        o = flash_attention(q, k, v, causal, None, 0, 1024, None)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p[prefix + "wo"])
     return x + out, cache
 
@@ -95,15 +99,45 @@ def _mlp(x, p):
 
 
 def encode(params, frames, cfg: ModelConfig):
-    """frames: (B, F, d) stubbed frontend output -> encoder states."""
+    """frames: (B, F, d) stubbed frontend output -> encoder states; each
+    layer is recomputed in the backward (the reference always
+    rematerialises the encoder)."""
     x = frames.to(act_dtype(params))
     positions = torch.arange(x.shape[1], device=x.device)
-    enc = params["enc_groups"][0]
-    for g in range(cfg.n_enc_layers):
-        gp = group_slice(enc, g)
+
+    def body(x, gp):
         x, _ = _self_attn(x, gp, causal=False, positions=positions)
-        x = _mlp(x, gp)
+        return _mlp(x, gp)
+
+    for gps in unstack_groups(params["enc_groups"]):
+        x = rematerialize(body, x, gps[0])
     return rms_norm(x, params["enc_norm"])
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    """batch: {"frames": (B, F, d), "tokens": (B, S+1)}. The decoder's
+    mean next-token cross-entropy (targets ``tokens[:, 1:]``, those < 0
+    masked out): causal self-attention, cross-attention to the encoder
+    states, the MLP; each decoder layer recomputed in the backward. A
+    float32 scalar."""
+    enc = encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    x = params["embed"][inp].to(act_dtype(params))
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(x, gp):
+        x, _ = _self_attn(x, gp, causal=True, positions=positions)
+        x, _ = _self_attn(x, gp, causal=False, positions=positions,
+                          prefix="x_", kv_override=enc)
+        return _mlp(x, gp)
+
+    for gps in unstack_groups(params["groups"]):
+        x = rematerialize(body, x, gps[0])
+    x = rms_norm(x, params["final_norm"])
+    mask = (tgt >= 0).float()
+    return chunked_cross_entropy(x, params["embed"], torch.clamp_min(tgt, 0),
+                                 mask)
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=DTYPE, *,

@@ -1,3 +1,19 @@
-"""repro_torch.train — the in-house optimizer the centroid fits use, and
-the LM serve-step factories (``train_step``)."""
-from .optimizer import AdamState, AdamW
+"""repro_torch.train — the LM / Whisper training runtime on one device
+and the in-house AdamW, which the soft barycenters step with too.
+
+  optimizer.py    ``AdamW`` (pytrees, a callable lr, float32 or bfloat16
+                  moments, an optional float32 master copy, in-place
+                  ``update_``), ``AdamState``, ``cosine_schedule``
+  train_step.py   ``make_train_step`` (microbatches accumulated in
+                  float32), ``make_serve_step``, ``make_prefill``
+  checkpoint.py   ``save_checkpoint`` / ``restore_checkpoint`` /
+                  ``list_checkpoints`` and the async ``CheckpointManager``
+                  (the reference's layout: either package restores the
+                  other's checkpoints)
+  data.py         ``TokenPipeline``: batch = f(seed, step), with prefetch
+"""
+from .checkpoint import (CheckpointManager, list_checkpoints,
+                         restore_checkpoint, save_checkpoint)
+from .data import TokenPipeline
+from .optimizer import AdamState, AdamW, cosine_schedule
+from .train_step import make_prefill, make_serve_step, make_train_step
