@@ -168,6 +168,26 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    ``tests/test_torch_lm_train_cuda.py`` runs too. Then
    ``launch.train.train("minicpm-2b", 12 steps)`` with checkpoints and
    its resume to 14: the loss falls, the resume runs steps 12-13.
+3j. Multi-rank LM training over the data axis (plain PyTorch and
+   torch.distributed, as 3i). deepseek-v2-lite-16b at published width,
+   cut to the most layers whose two ranks' bf16 parameters and gradients
+   and float32 AdamW state fit in 60 GB (``_dp_cut``, from
+   ``param_count``), on 2 gloo ranks sharing the card (each capped at
+   ``DP_MEM_FRACTION`` of it), data axis 2, batch 8 x 64, 4 steps, the
+   MoE expert-parallel: each step's time, loss, grad norm, peak memory
+   per rank, and each collective's calls, host time and bytes. Gates:
+   every loss and grad norm finite and equal on the ranks, every leaf
+   moved on its owner, the replicated leaves equal bit for bit across
+   the ranks after each step (two int64 checksums of their bits), the
+   parameters saved at two ranks restored at one rank here equal, block
+   by block, to each rank's bits. Then yi-6b, gemma3-4b,
+   deepseek-v2-lite-16b and jamba-v0.1-52b reduced, float32 twins: one
+   step's synced gradients per microbatch, deferred at m = 2 and deferred
+   + int8 on 2 gloo ranks on the card against 2 on the CPU; ``python -m
+   torch.distributed.run ... repro_torch.launch.train`` on 1 nccl rank
+   and its resume; ``examples/align_whisper_torch.py`` on the card (its
+   support and anchors equal to the CPU's on the same weights) and
+   ``examples/serve_lm_torch.py``. A rank that fails fails the phase.
    For each path (each part of 3f and 3g) the launch counters are set to
    0 just before and read just after, and each of its kernels must have
    launched. A torch.profiler pass, after 3g and before 3h, gives the
@@ -3261,6 +3281,492 @@ def phase_train():
 
 
 # ---------------------------------------------------------------------------
+# Phase 3j: multi-rank LM training over the data axis
+# ---------------------------------------------------------------------------
+
+DP_ARCH = "deepseek-v2-lite-16b"
+DP_RANKS = 2
+DP_BATCH, DP_SEQ, DP_STEPS = 8, 64, 4
+# the two ranks' bf16 parameters and gradients and float32 m, v and master
+# (16 bytes a parameter a rank) must fit in this much of the card
+DP_BYTES = 60e9
+# each rank's share of the card (its caching allocator's cap)
+DP_MEM_FRACTION = 0.47
+DP_LAUNCH_TIMEOUT_S = 600
+# card against CPU: reduced configurations, float32 twins, each mode's
+# synced gradients of one step: (grad_sync, microbatch, grad_compression)
+DP_CARD_ARCHS = ("yi-6b", "gemma3-4b", "deepseek-v2-lite-16b",
+                 "jamba-v0.1-52b")
+DP_MODES = (("per_microbatch", 1, None), ("deferred", 2, None),
+            ("deferred", 2, "int8"))
+DP_CARD_BATCH, DP_CARD_SEQ = 4, 16
+# the loss within DP_LOSS_ATOL; every gradient leaf within DP_GRAD_FRAC of
+# the CPU leaf's RMS (float32 sums in another order), and under int8 also
+# two quanta (a rank's rounding of an entry near a half step may go the
+# other way): 2 max|cpu| / 127
+DP_LOSS_ATOL, DP_GRAD_FRAC = 1e-5, 1e-4
+DP_COLLECTIVES = ("all_reduce", "all_to_all_single", "all_gather",
+                  "barrier")
+
+
+def _dp_cut(cfg):
+    """The most layers of ``cfg`` whose ``DP_RANKS`` ranks' parameters,
+    gradients and AdamW state fit in ``DP_BYTES``: each rank holds the
+    non-routed parameters and 1 / ``DP_RANKS`` of the routed experts, 16
+    bytes a parameter (``param_count``)."""
+    import dataclasses
+
+    def rank_bytes(n):
+        c = dataclasses.replace(cfg, n_layers=n)
+        routed = n * c.n_experts * 3 * c.d_model * c.moe_d_ff
+        return 16 * (c.param_count() - routed + routed // DP_RANKS)
+
+    n = 1
+    while n < cfg.n_layers and DP_RANKS * rank_bytes(n + 1) <= DP_BYTES:
+        n += 1
+    return dataclasses.replace(cfg, n_layers=n), DP_RANKS * rank_bytes(n)
+
+
+class _CollectiveLog:
+    """Host time, calls and bytes of each collective this process calls
+    (torch.distributed's functions wrapped while it is entered); a
+    collective's bytes are those of the tensor it is handed."""
+
+    def __init__(self):
+        self.rows = {k: [0, 0.0, 0] for k in DP_COLLECTIVES}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self._orig = {k: getattr(dist, k) for k in DP_COLLECTIVES}
+
+        def wrap(kind, fn):
+            def timed(*a, **kw):
+                t = next((x for x in a if hasattr(x, "element_size")), None)
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                row = self.rows[kind]
+                row[0] += 1
+                row[1] += time.perf_counter() - t0
+                row[2] += 0 if t is None else t.numel() * t.element_size()
+                return out
+            return timed
+
+        for k, fn in self._orig.items():
+            setattr(dist, k, wrap(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for k, fn in self._orig.items():
+            setattr(dist, k, fn)
+
+    def take(self):
+        """{kind: (calls, host s, bytes)} since the last take."""
+        out = {k: tuple(v) for k, v in self.rows.items() if v[0]}
+        self.rows = {k: [0, 0.0, 0] for k in DP_COLLECTIVES}
+        return out
+
+
+def _bits_sums(t):
+    """Two int64 checksums of a leaf's bits (their sum, and their sum
+    weighted by position mod 65521 + 1), in blocks: equal leaves give
+    equal sums, and any one entry that differs changes the first."""
+    import torch
+    flat = t.detach().reshape(-1)
+    bits = flat.view(torch.int16 if flat.element_size() == 2
+                     else torch.int32)
+    s1 = s2 = 0
+    for i in range(0, bits.numel(), 1 << 24):
+        b = bits[i:i + (1 << 24)].to(torch.int64)
+        w = (torch.arange(i, i + b.numel(), device=b.device) % 65521) + 1
+        s1 += int(b.sum())
+        s2 += int((b * w).sum())
+    return [s1, s2]
+
+
+def _dp_rank_full(out):
+    """One of ``DP_RANKS`` gloo ranks on the card: ``DP_ARCH`` at published
+    width, cut in depth (``_dp_cut``), ``DP_STEPS`` data-parallel steps of
+    batch ``DP_BATCH`` x ``DP_SEQ``; then the parameters saved at two ranks.
+    Writes ``OUT/full_r<rank>.json``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+    from repro_torch.models import build
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.train_step import leaf_specs, make_train_step
+    device = mesh.init_group("gloo")
+    torch.cuda.set_per_process_memory_fraction(DP_MEM_FRACTION, device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, size = mesh.world()
+    layout = mesh.make_host_mesh(size, 1)
+    cfg, budget = _dp_cut(get_config(DP_ARCH))
+    api = build(cfg)
+    pspecs = api.param_pspecs()
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=device).manual_seed(0),
+                             layout=layout)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = leaf_specs(params, pspecs)
+    host = [t.to("cpu", copy=True) for t in tree_leaves(params)]
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, 1, DP_STEPS))
+    step_fn = make_train_step(api, opt, layout=layout)
+    state = opt.init(params)
+    rows = []
+    with _CollectiveLog() as coll:
+        for s in range(DP_STEPS):
+            b = _train_batch(cfg, DP_BATCH, DP_SEQ, 0, s, device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            coll.take()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            e0.record()
+            params, state, met = step_fn(params, state, b)
+            e1.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            kinds = coll.take()
+            sums = [_bits_sums(t) for t, sp in zip(tree_leaves(params), specs)
+                    if not mesh.sharded_dims(sp, layout)]
+            rows.append({"wall_ms": wall, "cuda_ms": e0.elapsed_time(e1),
+                         "loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"]),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "collectives": kinds,
+                         "replicated_sums": sums})
+    moved = [not torch.equal(t.cpu(), h)
+             for t, h in zip(tree_leaves(params), host)]
+    del host, state
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    save_checkpoint(str(Path(out) / "ckpt"), DP_STEPS, {"params": params},
+                    specs={"params": pspecs}, layout=layout)
+    save_s = time.perf_counter() - t1
+    blocks = [_bits_sums(t) for t in tree_leaves(params)]
+    Path(out, f"full_r{rank}.json").write_text(json.dumps({
+        "n_layers": cfg.n_layers, "budget": budget, "init_s": init_s,
+        "params": sum(t.numel() for t in tree_leaves(params)),
+        "rows": rows, "moved": moved, "save_s": save_s,
+        "blocks": blocks, "specs": [list(map(str, sp)) for sp in specs]}))
+    mesh.destroy_group()
+
+
+def _dp_rank_card(out, device):
+    """One of ``DP_RANKS`` gloo ranks on ``device``: for each of
+    ``DP_CARD_ARCHS`` reduced, float32 twin of seeded weights (drawn on
+    the CPU), each of ``DP_MODES``' synced gradients of one step on the
+    same batch. Rank 0 writes ``OUT/<device>.npz``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import mesh
+    from repro_torch.launch.mesh import gather_leaf
+    from repro_torch.models import build
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import leaf_specs, make_train_step
+    dev = mesh.init_group("gloo", device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    rank, size = mesh.world()
+    layout = mesh.make_host_mesh(size, 1)
+    res = {}
+    for arch in DP_CARD_ARCHS:
+        cfg = reduced(get_config(arch))
+        api = build(cfg)
+        params = tree_map(lambda t: t.float().to(dev), api.init_params(
+            torch.Generator().manual_seed(4), layout=layout))
+        specs = leaf_specs(params, api.param_pspecs())
+        batch = _train_batch(cfg, DP_CARD_BATCH, DP_CARD_SEQ, 4, 0, dev)
+        for sync, m, comp in DP_MODES:
+            loss, g = make_train_step(
+                api, AdamW(), layout=layout, microbatch=m, grad_sync=sync,
+                grad_compression=comp).grads(params, batch)
+            key = f"{arch}|{sync}|{m}|{comp}"
+            res[key + "|loss"] = np.asarray(float(loss))
+            for i, (t, sp) in enumerate(zip(tree_leaves(g), specs)):
+                res[f"{key}|{i}"] = gather_leaf(t, sp, layout).float().cpu(
+                ).numpy()
+    if rank == 0:
+        np.savez(Path(out) / f"{torch.device(device).type}.npz", **res)
+    mesh.destroy_group()
+
+
+def _dp_rank_main(argv) -> int:
+    """The rank program of phase 3j (``chip_smoke.py --dp-rank JOB OUT
+    [DEVICE]`` under ``python -m torch.distributed.run``)."""
+    job, out, *rest = argv
+    if job == "full":
+        _dp_rank_full(out)
+    else:
+        _dp_rank_card(out, rest[0])
+    return 0
+
+
+def _dp_launch(nproc, args, backend_args=(), module=False):
+    """``python -m torch.distributed.run --standalone`` with ``nproc``
+    ranks of this script's rank program (or of ``args`` as a module when
+    ``module``), in a session of its own killed whole at the time limit;
+    returns (the process, its start time)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}"]
+    cmd += (["-m", "--", *args] if module
+            else [str(ROOT / "chip_smoke.py"), "--dp-rank", *args])
+    return subprocess.Popen(cmd + list(backend_args), cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True), \
+        time.perf_counter()
+
+
+def _dp_wait(proc, t0, what):
+    """Wait for a launch; fails the phase on a nonzero exit or past
+    ``DP_LAUNCH_TIMEOUT_S``. Returns (output, wall s)."""
+    import os
+    import signal
+    try:
+        out = proc.communicate(timeout=DP_LAUNCH_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{what} passed {DP_LAUNCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"{what} failed (exit "
+            f"{proc.returncode}):\n{out[-4000:]}")
+    return out, wall
+
+
+def _dp_full(tmp):
+    """``DP_ARCH`` at published width on ``DP_RANKS`` gloo ranks sharing
+    the card, then its two-rank save restored at one rank here."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import map_schema, model_schema
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train.checkpoint import restore_checkpoint
+    proc, t0 = _dp_launch(DP_RANKS, ["full", str(tmp)])
+    _, wall = _dp_wait(proc, t0, f"{DP_ARCH} on {DP_RANKS} gloo ranks")
+    ranks = [json.loads((tmp / f"full_r{r}.json").read_text())
+             for r in range(DP_RANKS)]
+    r0 = ranks[0]
+    full = get_config(DP_ARCH)
+    log(f"  {DP_ARCH} at published width (d {full.d_model}, MLA kv_lora "
+        f"{full.kv_lora_rank}, {full.n_experts} routed experts top-"
+        f"{full.top_k}, {full.n_shared_experts} shared, moe_ff "
+        f"{full.moe_d_ff}, vocab {full.vocab}), {r0['n_layers']} of "
+        f"{full.n_layers} layers (the most whose {DP_RANKS} ranks' state "
+        f"fits in {DP_BYTES / 1e9:.0f} GB: {r0['budget'] / 1e9:.1f} GB), "
+        f"{DP_RANKS} gloo ranks on one card, data axis {DP_RANKS}, batch "
+        f"{DP_BATCH} x {DP_SEQ}, {DP_STEPS} steps; {r0['params'] / 1e9:.3f} "
+        f"B parameters a rank; launch {wall:.1f} s (draw {r0['init_s']:.1f}"
+        f" s, save {r0['save_s']:.1f} s)")
+    for s in range(DP_STEPS):
+        rs = [rk["rows"][s] for rk in ranks]
+        coll = "; ".join(
+            f"{k} {c} calls {t * 1e3:.1f} ms {b / 1e6:.1f} MB"
+            for k, (c, t, b) in rs[0]["collectives"].items())
+        log(f"  step {s}: loss {rs[0]['loss']:.4f}, grad norm "
+            f"{rs[0]['grad_norm']:.4f}; " + ", ".join(
+                f"rank {r} {x['wall_ms']:.1f} ms host / {x['cuda_ms']:.1f} ms "
+                f"events, peak {x['peak_gb']:.2f} GB"
+                for r, x in enumerate(rs)) + f"; rank 0's collectives: "
+            + coll)
+        require(all(math.isfinite(x["loss"]) and math.isfinite(
+            x["grad_norm"]) for x in rs), f"{DP_ARCH}: step {s} not finite")
+        require(all(x["loss"] == rs[0]["loss"] for x in rs),
+                f"{DP_ARCH}: step {s}'s loss differs across ranks")
+        require(all(x["replicated_sums"] == rs[0]["replicated_sums"]
+                    for x in rs), f"{DP_ARCH}: a replicated leaf differs "
+                f"across ranks after step {s}")
+    for r, rk in enumerate(ranks):
+        still = [i for i, m in enumerate(rk["moved"]) if not m]
+        require(not still, f"{DP_ARCH}: rank {r}'s leaves {still} did "
+                f"not move")
+    # the two-rank save, restored whole at one rank: each leaf's blocks
+    # carry the bits each rank held
+    cfg = dataclasses.replace(full, n_layers=r0["n_layers"])
+    like = map_schema(model_schema(cfg),
+                      lambda shp, sc, ps: torch.empty(0, device=DEVICE))
+    t1 = time.perf_counter()
+    back = restore_checkpoint(str(tmp / "ckpt"), DP_STEPS, {"params": like})
+    restore_s = time.perf_counter() - t1
+    for i, t in enumerate(tree_leaves(back["params"])):
+        # an expert leaf (G, E, ...) is split over the ranks on axis 1
+        split = "data" in r0["specs"][i]
+        for r, rk in enumerate(ranks):
+            p = torch.chunk(t, DP_RANKS, dim=1)[r] if split else t
+            require(_bits_sums(p.contiguous()) == rk["blocks"][i],
+                    f"{DP_ARCH}: the one-rank restore of leaf {i} differs "
+                    f"from rank {r}'s block")
+    del back
+    _lm_free()
+    log(f"  the two-rank save ({sum(rk['save_s'] for rk in ranks[:1]):.1f} "
+        f"s) restored at one rank in {restore_s:.1f} s: every block equal "
+        f"to its rank's bits; every loss and grad norm finite and equal on "
+        f"the ranks, every leaf moved on its owner, the replicated leaves "
+        f"equal bit for bit across the ranks after each step")
+    later = [max(rk["rows"][s]["wall_ms"] for rk in ranks)
+             for s in range(1, DP_STEPS)]
+    coll_s = [sum(t for _, t, _ in ranks[0]["rows"][s]["collectives"]
+                  .values()) for s in range(1, DP_STEPS)]
+    return {"ranks": ranks, "step_ms": statistics.median(later),
+            "collective_ms": statistics.median(coll_s) * 1e3, "wall": wall}
+
+
+def _dp_card_vs_cpu(tmp):
+    """``DP_CARD_ARCHS`` reduced, each of ``DP_MODES``: two gloo ranks on
+    the card against two on the CPU (launched together)."""
+    import numpy as np
+    procs = [_dp_launch(DP_RANKS, ["card", str(tmp), dev])
+             for dev in ("cuda", "cpu")]
+    for (p, t0), dev in zip(procs, ("card", "CPU")):
+        _dp_wait(p, t0, f"reduced configurations on {DP_RANKS} gloo ranks "
+                 f"on the {dev}")
+    card, cpu = (np.load(tmp / f"{d}.npz") for d in ("cuda", "cpu"))
+    worst = {}
+    for key in cpu.files:
+        arch, sync, m, comp, what = key.split("|")
+        w, g = cpu[key], card[key]
+        mode = f"{arch} {sync} m={m}" + (f" {comp}" if comp != "None"
+                                         else "")
+        if what == "loss":
+            err, limit = abs(float(g) - float(w)), DP_LOSS_ATOL
+        else:
+            rms = float(np.sqrt(np.mean(w * w)))
+            err = float(np.max(np.abs(g - w)))
+            limit = DP_GRAD_FRAC * rms + (2 * float(np.abs(w).max()) / 127
+                                          if comp == "int8" else 0.0)
+        require(err <= limit, f"{mode}: card != CPU in {what}: {err} over "
+                f"{limit}")
+        if what != "loss":
+            worst[mode] = max(worst.get(mode, 0.0), err / max(rms, 1e-30))
+    log(f"  reduced configurations, {DP_RANKS} gloo ranks on the card "
+        f"against {DP_RANKS} on the CPU, float32 twins, synced gradients "
+        f"(worst |error| / RMS): " + "; ".join(
+            f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst
+
+
+def _dp_nccl(tmp):
+    """``launch.train`` on one nccl rank on the card at the reference's
+    test shape, then its resume."""
+    args = ["repro_torch.launch.train", "--arch", RESUME_ARCH, "--batch",
+            "4", "--seq", "32", "--ckpt-every", "6", "--lr", "5e-3",
+            "--backend", "nccl", "--ckpt-dir",
+            str(tmp / "nccl")]
+    res = []
+    for steps in RESUME_STEPS:
+        proc, t0 = _dp_launch(1, args + ["--steps", str(steps)],
+                              module=True)
+        out, wall = _dp_wait(proc, t0, f"launch.train on 1 nccl rank, "
+                             f"{steps} steps")
+        line = json.loads([ln for ln in out.splitlines()
+                           if ln.startswith("{")][-1])
+        res.append((line, wall))
+    (first, w1), (second, w2) = res
+    log(f"  launch.train({RESUME_ARCH!r}) on 1 nccl rank: loss "
+        f"{first['first_loss']:.4f} -> {first['last_loss']:.4f} over "
+        f"{first['steps_run']} steps ({w1:.1f} s with the launcher); "
+        f"resumed to {RESUME_STEPS[1]}: {second['steps_run']} steps "
+        f"({w2:.1f} s)")
+    require(first["steps_run"] == RESUME_STEPS[0]
+            and first["last_loss"] < first["first_loss"],
+            f"nccl launch.train: the loss did not fall: {first}")
+    require(second["steps_run"] == RESUME_STEPS[1] - RESUME_STEPS[0],
+            f"nccl launch.train: the resume ran {second['steps_run']}")
+    return res
+
+
+def _dp_examples():
+    """The example twins on the card: the alignment on the card equals the
+    CPU's on the same weights; serving yields its batch's tokens."""
+    import dataclasses
+    import importlib.util
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+    from repro_torch.pytree import tree_map
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    align = load("align_whisper_torch")
+    cfg = dataclasses.replace(reduced(get_config("whisper-medium")),
+                              n_frames=align.N_FRAMES)
+    params = build(cfg).init_params(torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    card = align.main(["--device", "cuda"],
+                      params=tree_map(lambda t: t.to(DEVICE), params))
+    t1 = time.perf_counter()
+    cpu = align.main(["--device", "cpu"], params=params)
+    require(bool((card["support"] == cpu["support"]).all())
+            and card["anchors"] == cpu["anchors"]
+            and card["miss"] == cpu["miss"],
+            f"align_whisper_torch: card {card['anchors']} != CPU "
+            f"{cpu['anchors']}")
+    t2 = time.perf_counter()
+    served = load("serve_lm_torch").main(["--arch", "yi-6b"])
+    t3 = time.perf_counter()
+    require(served["generated"] == (4, 24),
+            f"serve_lm_torch generated {served['generated']}")
+    log(f"  examples/align_whisper_torch.py on the card ({t1 - t0:.1f} s): "
+        f"support {100 * card['fraction']:.1f}% of the grid and anchors "
+        f"{card['anchors']}, equal to the CPU's; "
+        f"examples/serve_lm_torch.py on the card ({t3 - t2:.1f} s): "
+        f"{served}")
+    return {"align": card["anchors"], "serve": served}
+
+
+def phase_dp():
+    """Multi-rank LM training over the data axis (plain PyTorch and
+    torch.distributed: the LM stack has no TPU kernel): ``DP_ARCH`` at
+    published width on two gloo ranks sharing the card, the reduced
+    configurations' modes card against CPU, one nccl rank's
+    ``launch.train`` and resume, and the example twins."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    _lm_free()
+    free, total = torch.cuda.mem_get_info()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    disk = shutil.disk_usage(tmp)
+    log(f"  card: {card_line()}; {free / 1e9:.1f} of {total / 1e9:.1f} GB "
+        f"free; {disk.free / 1e9:.1f} GB free on the disk of {tmp}")
+    reset_launch_counts()
+    try:
+        card = _dp_card_vs_cpu(tmp)
+        full = _dp_full(tmp)
+        nccl = _dp_nccl(tmp)
+        examples = _dp_examples()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lc = launch_counts()
+    wall = time.perf_counter() - t0
+    log(f"  {DP_ARCH}: median step after the first {full['step_ms']:.1f} ms "
+        f"(the slower rank, host clock), of it rank 0's collectives "
+        f"{full['collective_ms']:.1f} ms host; launches of the port's CUDA "
+        f"kernels in this process {sum(lc.values())} (the LM stack has no "
+        f"TPU kernel); phase 3j wall time {wall:.1f} s")
+    return {"full": full, "card_vs_cpu": card, "nccl": nccl,
+            "examples": examples, "wall": wall}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4
 # ---------------------------------------------------------------------------
 
@@ -3884,8 +4390,13 @@ def main(argv=None) -> int:
     ap.add_argument("--stop-after", type=int, default=4,
                     help="last phase to run (1-4); a run that stops early "
                          "prints no result")
+    ap.add_argument("--dp-rank", nargs="+", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
+    if args.dp_rank:
+        # one rank of phase 3j, started by the phase itself
+        return _dp_rank_main(args.dp_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3935,6 +4446,11 @@ def main(argv=None) -> int:
         f"{WHISPER_ARCH} whole, the other eight reduced "
         f"({time.perf_counter() - t0:.1f} s)")
     phase_train()
+    log(f"phase 3j: multi-rank LM training over the data axis, {DP_ARCH} "
+        f"at published width on {DP_RANKS} gloo ranks, the modes card "
+        f"against CPU, one nccl rank, the example twins "
+        f"({time.perf_counter() - t0:.1f} s)")
+    phase_dp()
     if args.stop_after < 4:
         return 0
     log(f"phase 4: kernel timing at the paths' shapes "

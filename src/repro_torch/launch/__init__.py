@@ -14,7 +14,10 @@
                   (``python -m repro_torch.launch.scenarios``)
   mesh.py         process groups from the launcher's environment
                   (``torch.distributed``, nccl or gloo), each rank's
-                  device, the gathers the jobs use
+                  device, the gathers the jobs use; ``Layout``, the rank
+                  layout over named axes with a subgroup per slice, and
+                  placement by partition spec (``local_slice``,
+                  ``gather_leaf``)
   shard_index.py  the sharded corpus index: ``shard_corpus_state``,
                   ``local_topk``, ``merge_topk``, ``ShardedSearch``
                   (distributed path over a group, host loop otherwise)
@@ -25,12 +28,12 @@
 
   serve.py        the LM / Whisper greedy decode loop (``serve``,
                   ``generate``, ``python -m repro_torch.launch.serve``)
-  train.py        the LM / Whisper trainer on one device: checkpoints,
-                  resume, straggler log (``train``,
-                  ``python -m repro_torch.launch.train``)
+  train.py        the LM / Whisper trainer: checkpoints, elastic resume,
+                  straggler log, data-parallel over ``--data-axis`` ranks
+                  (``train``, ``python -m repro_torch.launch.train``)
 
 The jobs run under ``python -m torch.distributed.run`` (``--backend
 nccl|gloo``) or as one rank without it. The XLA compile probes
-(``dryrun`` and its shape helpers) and multi-rank training are not here
-yet.
+(``dryrun`` and its shape helpers) and tensor parallelism over the model
+axis are not here yet.
 """

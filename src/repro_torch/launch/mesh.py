@@ -21,15 +21,25 @@ A program with no group is one rank (``world()`` is (0, 1)), the
 counterpart of the reference's 1 x 1 host mesh; its jobs run the same
 code with nothing to gather.
 
+``Layout`` is the counterpart of the mesh itself (``make_mesh``;
+``make_host_mesh`` builds the (data, model) one): the default group's ranks laid out row-major over
+named axes, as ``jax.make_mesh`` orders its devices, with one subgroup
+per slice of every set of axes. The multi-rank LM trainer places its
+parameters and batch rows by it. gloo takes CUDA tensors in every
+collective the trainer calls (``tools/gloo_cuda_probe.py``: torch 2.11
+on an H100), so they are passed as they are, on either backend.
+
   python -m torch.distributed.run --standalone --nproc_per_node 2 \\
       -m -- repro_torch.launch.gram --backend gloo --out /tmp/gram
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -146,3 +156,197 @@ def destroy_group() -> None:
     """Leave the default group, when there is one."""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------- rank layout
+Axes = Union[str, Sequence[str]]
+
+
+class Layout:
+    """The default group's ranks over named axes, row-major: under shape
+    (D, M) rank ``d * M + m`` sits at (d, m), as ``jax.make_mesh`` places
+    devices. Without a group it is the 1 x ... x 1 layout of rank 0.
+
+    For every non-empty set of axes (in a fixed order) and every slice
+    along it (the ranks that share all other coordinates) a subgroup is
+    made: ``torch.distributed.new_group`` is collective over the default
+    group, so every rank makes every subgroup, in the same order, member
+    or not. A slice of one rank has no subgroup (its collectives are the
+    identity), and slices with the same members share one.
+    """
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        self.shape = tuple(int(n) for n in shape)
+        self.axes = tuple(axes)
+        if len(self.shape) != len(self.axes) or len(set(self.axes)) != len(
+                self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"must pair up, the axes distinct")
+        self.rank, size = world()
+        if math.prod(self.shape) != size:
+            raise ValueError(f"layout {dict(zip(self.axes, self.shape))} "
+                             f"needs {math.prod(self.shape)} ranks, the "
+                             f"group has {size}")
+        self.coords = tuple(int(c) for c in np.unravel_index(self.rank,
+                                                             self.shape))
+        self._groups: Dict[Tuple[str, ...], Tuple[Optional[object],
+                                                  Tuple[int, ...]]] = {}
+        made: Dict[Tuple[int, ...], object] = {}
+        for n in range(1, len(self.axes) + 1):
+            for names in itertools.combinations(self.axes, n):
+                for members in self._slices(names):
+                    if len(members) > 1 and members not in made:
+                        made[members] = dist.new_group(list(members))
+                    if self.rank in members:
+                        self._groups[names] = (made.get(members), members)
+
+    def _norm(self, names: Axes) -> Tuple[str, ...]:
+        """``names`` as a tuple of this layout's axes in layout order."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        unknown = [a for a in names if a not in self.axes]
+        if unknown:
+            raise KeyError(f"axes {unknown} not in the layout {self.axes}")
+        return tuple(a for a in self.axes if a in names)
+
+    def _slices(self, names: Tuple[str, ...]):
+        """The rank tuples along ``names``: one per coordinate of the
+        other axes, row-major, each sorted (row-major over ``names``)."""
+        along = [i for i, a in enumerate(self.axes) if a in names]
+        rest = [i for i in range(len(self.axes)) if i not in along]
+        for fixed in itertools.product(*(range(self.shape[i])
+                                         for i in rest)):
+            members = []
+            for free in itertools.product(*(range(self.shape[i])
+                                            for i in along)):
+                c = [0] * len(self.axes)
+                for i, v in zip(rest, fixed):
+                    c[i] = v
+                for i, v in zip(along, free):
+                    c[i] = v
+                members.append(int(np.ravel_multi_index(c, self.shape)))
+            yield tuple(sorted(members))
+
+    def size(self, names: Axes) -> int:
+        """Ranks along ``names`` (a product over several axes; 1 for
+        none)."""
+        names = self._norm(names)
+        return math.prod(self.shape[self.axes.index(a)] for a in names)
+
+    def index(self, names: Axes) -> int:
+        """This rank's position along ``names``, row-major over them."""
+        names = self._norm(names)
+        if not names:
+            return 0
+        idx = [self.axes.index(a) for a in names]
+        return int(np.ravel_multi_index([self.coords[i] for i in idx],
+                                         [self.shape[i] for i in idx]))
+
+    def group(self, names: Axes):
+        """The subgroup of this rank's slice along ``names``; None where
+        the slice is this rank alone."""
+        names = self._norm(names)
+        return self._groups[names][0] if names else None
+
+    def members(self, names: Axes) -> Tuple[int, ...]:
+        """The default-group ranks of this rank's slice along ``names``,
+        in group order."""
+        names = self._norm(names)
+        return self._groups[names][1] if names else (self.rank,)
+
+    def __repr__(self):
+        return (f"Layout({dict(zip(self.axes, self.shape))}, rank "
+                f"{self.rank} at {self.coords})")
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> Layout:
+    """A (data, model) layout over the group's ranks (the reference's
+    ``make_host_mesh``)."""
+    return Layout((data, model), ("data", "model"))
+
+
+def all_reduce_(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced in place over ``group`` ("sum" or "max"); the
+    identity for a group of one (None)."""
+    if group is not None:
+        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op], group=group)
+    return t
+
+
+def exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """All-to-all along axis 0 over ``group``: ``t`` is (n, ...) for a
+    group of n ranks; row j goes to group rank j, and row i of the result
+    came from group rank i (the reference's ``lax.all_to_all`` with
+    split and concat axis 0, untiled). Its own inverse; the identity for
+    a group of one."""
+    if group is None:
+        return t
+    src = t.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out
+
+
+def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every group rank's ``t`` (equal shapes) concatenated along ``dim``
+    in group order; ``t`` for a group of one."""
+    if group is None:
+        return t
+    src = t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim)
+
+
+# -------------------------------------------------- placement by pspec
+# A partition spec is a tuple with one entry per dimension: an axis name,
+# a tuple of names, or None (the reference's PartitionSpec as a tuple).
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every axis name a partition spec uses, in order."""
+    out = []
+    for entry in spec:
+        if entry is None:
+            continue
+        out.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(out)
+
+
+def sharded_dims(spec, layout: Optional[Layout]):
+    """(dim, axes) for each dimension of ``spec`` that ``layout`` splits
+    over more than one rank (axes the layout lacks replicate)."""
+    if layout is None:
+        return []
+    out = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = tuple(a for a in ((entry,) if isinstance(entry, str)
+                                  else entry) if a in layout.axes)
+        if names and layout.size(names) > 1:
+            out.append((dim, names))
+    return out
+
+
+def local_slice(t: torch.Tensor, spec, layout: Optional[Layout]):
+    """This rank's block of the whole leaf ``t`` under ``spec``: along each
+    split dimension of length L over n ranks, rows [k L / n, (k + 1) L /
+    n) for the rank's position k; a contiguous copy where anything is
+    cut, ``t`` itself otherwise."""
+    dims = sharded_dims(spec, layout)
+    for dim, names in dims:
+        n, k = layout.size(names), layout.index(names)
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does "
+                             f"not split over {n} ranks of {names}")
+        step = t.shape[dim] // n
+        t = t.narrow(dim, k * step, step)
+    return t.contiguous().clone() if dims else t
+
+
+def gather_leaf(t: torch.Tensor, spec, layout: Optional[Layout]):
+    """The whole leaf from every rank's block ``t`` under ``spec`` (the
+    inverse of ``local_slice``); every rank of each slice calls it."""
+    for dim, names in reversed(sharded_dims(spec, layout)):
+        t = all_gather_dim(t, layout.group(names), dim)
+    return t

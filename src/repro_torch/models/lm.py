@@ -6,14 +6,18 @@ Parameter pytree, the reference's names and layout:
     "groups": [ per-pattern-position dict, every leaf stacked (G, ...) ] }
 
 Entry points:
-  train_loss(params, batch, cfg)              -> scalar loss
+  train_loss(params, batch, cfg, ctx=None)    -> scalar loss
   forward_hidden(params, tokens, cfg)         -> (final hidden, aux loss)
   prefill(params, tokens, cfg, S_cache)       -> (last hidden, cache)
   decode_step(params, cache, token, pos, cfg) -> (logits, cache)
 
-The reference scans over the groups; here a Python loop indexes the
-stacked leaves. Its sharding constraints and barriers do nothing on one
-card and are not carried over. Attention without a cache goes through
+The schema carries the reference's partition specs as tuples
+(``param_pspecs``); ``Ctx`` holds a rank layout (``launch.mesh.Layout``)
+for data-parallel training, where each rank computes on its rows and the
+MoE layers run expert-parallel. The reference scans over the groups; here
+a Python loop indexes the stacked leaves. Its sharding constraints and
+barriers place arrays on its mesh; here each rank holds its blocks, so
+they are not carried over. Attention without a cache goes through
 ``flash.flash_attention`` (its forward is ``layers.attention``'s, its
 backward recomputes the probabilities), as in the reference.
 ``forward_hidden`` rematerialises each group in the backward
@@ -28,6 +32,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.launch.mesh import local_slice
 from repro_torch.pytree import tree_leaves, tree_map
 
 from .config import LayerSpec, ModelConfig
@@ -41,17 +46,38 @@ DTYPE = torch.bfloat16
 
 
 # --------------------------------------------------------------------------
-# parameter schema: name -> (shape, init scale)
+# parameter schema: name -> (shape, init scale, partition spec)
+#
+# A partition spec is the reference's ``PartitionSpec`` as a plain tuple:
+# one entry per dimension, an axis name of the rank layout, a tuple of
+# names, or None. Only the axes a ``launch.mesh.Layout`` gives more than
+# one rank shard anything.
 # --------------------------------------------------------------------------
 
 def _attn_schema(cfg: ModelConfig) -> Dict[str, tuple]:
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
-        "norm1": ((d,), 0.0),
-        "wq": ((d, H, hd), 0.02),
-        "wk": ((d, Hkv, hd), 0.02),
-        "wv": ((d, Hkv, hd), 0.02),
-        "wo": ((H, hd, d), 0.02),
+    if cfg.attn_shard == "heads":
+        return {
+            "norm1": ((d,), 0.0, (None,)),
+            "wq": ((d, H, hd), 0.02, (None, "model", None)),
+            "wk": ((d, Hkv, hd), 0.02, (None, None, None)),
+            "wv": ((d, Hkv, hd), 0.02, (None, None, None)),
+            "wo": ((H, hd, d), 0.02, ("model", None, None)),
+        }
+    if cfg.attn_shard == "head_dim":
+        return {
+            "norm1": ((d,), 0.0, (None,)),
+            "wq": ((d, H, hd), 0.02, (None, None, "model")),
+            "wk": ((d, Hkv, hd), 0.02, (None, None, "model")),
+            "wv": ((d, Hkv, hd), 0.02, (None, None, "model")),
+            "wo": ((H, hd, d), 0.02, (None, "model", None)),
+        }
+    return {  # replicated
+        "norm1": ((d,), 0.0, (None,)),
+        "wq": ((d, H, hd), 0.02, (None, None, None)),
+        "wk": ((d, Hkv, hd), 0.02, (None, None, None)),
+        "wv": ((d, Hkv, hd), 0.02, (None, None, None)),
+        "wo": ((H, hd, d), 0.02, (None, None, None)),
     }
 
 
@@ -60,25 +86,26 @@ def _mla_schema(cfg: ModelConfig) -> Dict[str, tuple]:
     hd, rhd, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     out = {
-        "norm1": ((d,), 0.0),
-        "w_dkv": ((d, r), 0.02),
-        "kv_norm": ((r,), 0.0),
-        "w_krope": ((d, rhd), 0.02),
-        "w_uk": ((r, H, hd), 0.02),
-        "w_uv": ((r, H, dv), 0.02),
-        "wo": ((H, dv, d), 0.02),
+        "norm1": ((d,), 0.0, (None,)),
+        "w_dkv": ((d, r), 0.02, (None, None)),
+        "kv_norm": ((r,), 0.0, (None,)),
+        "w_krope": ((d, rhd), 0.02, (None, None)),
+        "w_uk": ((r, H, hd), 0.02, (None, "model", None)),
+        "w_uv": ((r, H, dv), 0.02, (None, "model", None)),
+        "wo": ((H, dv, d), 0.02, ("model", None, None)),
     }
     if cfg.q_lora_rank:
         out.update({
-            "w_dq": ((d, cfg.q_lora_rank), 0.02),
-            "q_norm": ((cfg.q_lora_rank,), 0.0),
-            "w_uq": ((cfg.q_lora_rank, H, hd), 0.02),
-            "w_uq_rope": ((cfg.q_lora_rank, H, rhd), 0.02),
+            "w_dq": ((d, cfg.q_lora_rank), 0.02, (None, None)),
+            "q_norm": ((cfg.q_lora_rank,), 0.0, (None,)),
+            "w_uq": ((cfg.q_lora_rank, H, hd), 0.02, (None, "model", None)),
+            "w_uq_rope": ((cfg.q_lora_rank, H, rhd), 0.02,
+                          (None, "model", None)),
         })
     else:
         out.update({
-            "w_q": ((d, H, hd), 0.02),
-            "w_q_rope": ((d, H, rhd), 0.02),
+            "w_q": ((d, H, hd), 0.02, (None, "model", None)),
+            "w_q_rope": ((d, H, rhd), 0.02, (None, "model", None)),
         })
     return out
 
@@ -87,47 +114,47 @@ def _mamba_schema(cfg: ModelConfig) -> Dict[str, tuple]:
     d, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
     dtr = max(d // 16, 1)
     return {
-        "norm1": ((d,), 0.0),
-        "in_x": ((d, di), 0.02),
-        "in_z": ((d, di), 0.02),
-        "conv_w": ((cfg.d_conv, di), 0.02),
-        "conv_b": ((di,), 0.0),
-        "w_B": ((di, ds), 0.02),
-        "w_C": ((di, ds), 0.02),
-        "dt_down": ((di, dtr), 0.02),
-        "dt_up": ((dtr, di), 0.02),
-        "dt_bias": ((di,), 0.0),
-        "A_log": ((di, ds), 0.0),
-        "D": ((di,), 0.0),
-        "out": ((di, d), 0.02),
+        "norm1": ((d,), 0.0, (None,)),
+        "in_x": ((d, di), 0.02, (None, "model")),
+        "in_z": ((d, di), 0.02, (None, "model")),
+        "conv_w": ((cfg.d_conv, di), 0.02, (None, "model")),
+        "conv_b": ((di,), 0.0, ("model",)),
+        "w_B": ((di, ds), 0.02, ("model", None)),
+        "w_C": ((di, ds), 0.02, ("model", None)),
+        "dt_down": ((di, dtr), 0.02, ("model", None)),
+        "dt_up": ((dtr, di), 0.02, (None, "model")),
+        "dt_bias": ((di,), 0.0, ("model",)),
+        "A_log": ((di, ds), 0.0, ("model", None)),
+        "D": ((di,), 0.0, ("model",)),
+        "out": ((di, d), 0.02, ("model", None)),
     }
 
 
 def _mlp_schema(cfg: ModelConfig) -> Dict[str, tuple]:
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "norm2": ((d,), 0.0),
-        "w_gate": ((d, ff), 0.02),
-        "w_up": ((d, ff), 0.02),
-        "w_down": ((ff, d), 0.02),
+        "norm2": ((d,), 0.0, (None,)),
+        "w_gate": ((d, ff), 0.02, (None, "model")),
+        "w_up": ((d, ff), 0.02, (None, "model")),
+        "w_down": ((ff, d), 0.02, ("model", None)),
     }
 
 
 def _moe_schema(cfg: ModelConfig) -> Dict[str, tuple]:
     d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     out = {
-        "norm2": ((d,), 0.0),
-        "router": ((d, E), 0.02),
-        "gate": ((E, d, ff), 0.02),
-        "up": ((E, d, ff), 0.02),
-        "down": ((E, ff, d), 0.02),
+        "norm2": ((d,), 0.0, (None,)),
+        "router": ((d, E), 0.02, (None, None)),
+        "gate": ((E, d, ff), 0.02, ("data", None, "model")),
+        "up": ((E, d, ff), 0.02, ("data", None, "model")),
+        "down": ((E, ff, d), 0.02, ("data", "model", None)),
     }
     if cfg.n_shared_experts:
         sff = cfg.n_shared_experts * ff
         out.update({
-            "sh_gate": ((d, sff), 0.02),
-            "sh_up": ((d, sff), 0.02),
-            "sh_down": ((sff, d), 0.02),
+            "sh_gate": ((d, sff), 0.02, (None, "model")),
+            "sh_up": ((d, sff), 0.02, (None, "model")),
+            "sh_down": ((sff, d), 0.02, ("model", None)),
         })
     return out
 
@@ -147,22 +174,27 @@ def layer_schema(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, tuple]:
     return out
 
 
+def stack_schema(sch: Dict[str, tuple], n: int) -> Dict[str, tuple]:
+    """A layer schema stacked ``n`` deep: a leading (n, ...) axis, not
+    sharded."""
+    return {k: ((n,) + shp, sc, (None,) + tuple(ps))
+            for k, (shp, sc, ps) in sch.items()}
+
+
 def model_schema(cfg: ModelConfig):
-    """Full-pytree schema {path: (shape, scale)}, mirroring the params."""
-    groups = []
-    for spec in cfg.pattern:
-        groups.append({k: ((cfg.n_groups,) + shp, sc)
-                       for k, (shp, sc) in layer_schema(cfg, spec).items()})
+    """Full-pytree schema {path: (shape, scale, pspec)}, mirroring the
+    params."""
     return {
-        "embed": ((cfg.vocab, cfg.d_model), 0.02),
-        "final_norm": ((cfg.d_model,), 0.0),
-        "groups": groups,
+        "embed": ((cfg.vocab, cfg.d_model), 0.02, ("model", None)),
+        "final_norm": ((cfg.d_model,), 0.0, (None,)),
+        "groups": [stack_schema(layer_schema(cfg, spec), cfg.n_groups)
+                   for spec in cfg.pattern],
     }
 
 
 def map_schema(schema, fn):
-    """Apply ``fn(shape, scale)`` to every leaf of a schema (dicts and
-    lists of dicts, in insertion order)."""
+    """Apply ``fn(shape, scale, pspec)`` to every leaf of a schema (dicts
+    and lists of dicts, in insertion order)."""
     out = {}
     for k, v in schema.items():
         if isinstance(v, list):
@@ -192,12 +224,80 @@ def draw_leaf(shape, scale: float, generator: torch.Generator, dtype):
     return out
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=DTYPE):
+def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=DTYPE,
+                layout=None):
     """Seeded parameters on ``generator.device``; the reference's
     ``fold_in`` draws have no torch twin, so the values are the port's
-    own (``convert.lm_params_from_reference`` carries the reference's)."""
-    return map_schema(model_schema(cfg),
-                      lambda shp, sc: draw_leaf(shp, sc, generator, dtype))
+    own (``convert.lm_params_from_reference`` carries the reference's).
+    Under a ``launch.mesh.Layout`` each leaf is drawn whole and this rank
+    keeps its block (``launch.mesh.local_slice``), so every rank draws the
+    same values and a sharded model is the slices of the unsharded one."""
+    return init_from_schema(model_schema(cfg), generator, dtype, layout)
+
+
+def init_from_schema(schema, generator, dtype, layout=None):
+    """Every leaf of ``schema`` drawn (``draw_leaf``), then cut to this
+    rank's block under ``layout``."""
+    return map_schema(schema, lambda shp, sc, ps: local_slice(
+        draw_leaf(shp, sc, generator, dtype), ps, layout))
+
+
+def param_pspecs(cfg: ModelConfig):
+    """The partition spec of every parameter leaf, as tuples (the
+    reference's ``param_pspecs``)."""
+    return map_schema(model_schema(cfg), lambda shp, sc, ps: tuple(ps))
+
+
+# --------------------------------------------------------------------------
+# the rank context
+# --------------------------------------------------------------------------
+
+class Ctx:
+    """The rank layout threaded through the forward pass (the reference's
+    mesh ``Ctx``; ``Ctx()`` is no layout, one device).
+
+    ``dp`` are the data-parallel axes, ("pod", "data") when the layout has
+    a pod axis. Under a layout the model computes on this rank's rows of
+    the global batch (``rows``): rank position k of n along ``dp`` takes
+    rows [k B / n, (k + 1) B / n), the block the reference's
+    ``ctx.cst(x, ctx.dp, ...)`` places on that device.
+    """
+
+    def __init__(self, layout=None):
+        self.layout = layout
+        if layout is not None and "pod" in layout.axes:
+            self.dp = ("pod", "data")
+        else:
+            self.dp = ("data",)
+
+    @property
+    def n_dp(self) -> int:
+        """Ranks along the data-parallel axes (1 without a layout)."""
+        if self.layout is None:
+            return 1
+        return self.layout.size(tuple(a for a in self.dp
+                                      if a in self.layout.axes))
+
+    def dp_divides(self, n: int) -> bool:
+        """n splits evenly over the data-parallel ranks (False without a
+        layout, as the reference's without a mesh)."""
+        return self.layout is not None and n % self.n_dp == 0
+
+    def rows(self, batch):
+        """This rank's rows (axis 0) of every leaf of a global batch."""
+        if self.layout is None or self.n_dp == 1:
+            return batch
+        dp = tuple(a for a in self.dp if a in self.layout.axes)
+        k = self.layout.index(dp)
+
+        def cut(t):
+            if not self.dp_divides(t.shape[0]):
+                raise ValueError(f"batch of {t.shape[0]} rows does not "
+                                 f"split over {self.n_dp} data ranks")
+            step = t.shape[0] // self.n_dp
+            return t[k * step:(k + 1) * step]
+
+        return tree_map(cut, batch)
 
 
 def param_bytes(tree) -> int:
@@ -332,14 +432,22 @@ def _apply_mla(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
     return x + out, {"ckv": ckv, "krope": krope}
 
 
-def _apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig):
-    """Returns (out, aux_loss)."""
+def _apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig, ctx=None):
+    """Returns (out, aux_loss). Under a layout the MoE runs expert-parallel
+    over the "data" axis (x holds this rank's rows of a batch split over
+    the data ranks, so the reference's ``dp_divides`` of the global token
+    count holds); its aux loss is this rank's, which the step's mean over
+    the data ranks turns into the reference's mean of the shards' aux."""
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "mlp":
         return x + gated_mlp(xn, p["w_gate"], p["w_up"], p["w_down"]), zero
+    B, S, _ = x.shape
+    use_ep = ctx is not None and ctx.dp_divides(B * S * ctx.n_dp)
     moe_out, aux = moe_ffn(xn, p, n_experts=cfg.n_experts, top_k=cfg.top_k,
-                           capacity_factor=cfg.capacity_factor)
+                           capacity_factor=cfg.capacity_factor,
+                           layout=ctx.layout if use_ep else None,
+                           ep_axis="data" if use_ep else None)
     out = x + moe_out
     if cfg.n_shared_experts:
         out = out + gated_mlp(xn, p["sh_gate"], p["sh_up"], p["sh_down"])
@@ -347,7 +455,7 @@ def _apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig):
 
 
 def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
-                 pos=None):
+                 pos=None, ctx=None):
     """One layer: (x, cache piece, aux). In decode the piece is ``cache``,
     updated in place; otherwise what prefill keeps (k / v, ckv / krope,
     or the Mamba state h / conv)."""
@@ -371,7 +479,7 @@ def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
         x = x + out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn != "none":
-        x, aux = _apply_ffn(x, p, spec, cfg)
+        x, aux = _apply_ffn(x, p, spec, cfg, ctx)
     return x, piece, aux
 
 
@@ -406,16 +514,18 @@ def unstack_groups(groups):
             for g in range(n)]
 
 
-def forward_hidden(params, tokens, cfg: ModelConfig, patches=None):
+def forward_hidden(params, tokens, cfg: ModelConfig, patches=None,
+                   ctx=None):
     """Token (+ optional VLM patch) embedding -> (final hidden states,
     summed MoE aux loss). Each group (all the pattern's layers of one
-    group) is recomputed in the backward."""
+    group) is recomputed in the backward. Under ``ctx``'s layout the
+    tokens are this rank's rows and the MoE layers run expert-parallel."""
     x = _inputs(params, tokens, patches)
 
     def group_body(x, gps):
         aux_t = torch.zeros((), dtype=torch.float32, device=x.device)
         for gp, spec in zip(gps, cfg.pattern):
-            x, _, aux = _apply_layer(x, gp, spec, cfg)
+            x, _, aux = _apply_layer(x, gp, spec, cfg, ctx=ctx)
             aux_t = aux_t + aux
         return x, aux_t
 
@@ -426,15 +536,18 @@ def forward_hidden(params, tokens, cfg: ModelConfig, patches=None):
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_t
 
 
-def train_loss(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):
+def train_loss(params, batch, cfg: ModelConfig, ctx=None,
+               aux_weight: float = 0.01):
     """batch: {"tokens": (B, S+1) int, optional "patches": (B, Np, d)}.
     The mean next-token cross-entropy over the text positions (targets
     ``tokens[:, 1:]``, those < 0 masked out) plus ``aux_weight`` times the
-    MoE load-balance loss; a float32 scalar."""
+    MoE load-balance loss; a float32 scalar. Under ``ctx``'s layout the
+    batch is this rank's rows (``Ctx.rows``) and the loss this rank's;
+    the data-parallel step averages it over the data ranks."""
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     patches = batch.get("patches")
-    x, aux = forward_hidden(params, inp, cfg, patches=patches)
+    x, aux = forward_hidden(params, inp, cfg, patches=patches, ctx=ctx)
     if patches is not None:
         x = x[:, patches.shape[1]:]   # loss on text positions only
     mask = (tgt >= 0).float()

@@ -1,19 +1,32 @@
-"""Mixture-of-Experts FFN, the local path (the port of
-``repro.models.moe`` with ``ep_axis=None``).
+"""Mixture-of-Experts FFN (the port of ``repro.models.moe``).
 
 Tokens are routed to their top-k experts, packed into a per-expert buffer
 of ``capacity`` rows in arrival order (tokens past capacity drop, GShard
-style), run through every expert's gated FFN at once, and combined with
-the renormalised router weights. The expert-parallel path of the
-reference (a shard_map with all_to_all dispatch) waits for multi-card
-model sharding.
+style), run through the experts' gated FFNs, and combined with the
+renormalised router weights.
+
+``ep_axis=None`` is the local path: every expert on this device.
+``ep_axis="data"`` with a ``launch.mesh.Layout`` is the reference's
+expert-parallel ``run(..., n_data, e_div)``: the tokens are this rank's
+rows, the rank holds experts [k E / n, (k + 1) E / n) of the n ranks
+along the axis (its rows of ``gate`` / ``up`` / ``down``), the capacity
+comes from the rank's own tokens, the (n, E / n, C, d) buffer goes out by
+an all-to-all, the rank's experts run on every rank's rows, and the
+results come back by the inverse all-to-all. The layer is recomputed in
+the backward (the reference's ``jax.checkpoint`` inside its shard_map),
+and the exchange's backward is the inverse exchange (``_Exchange``).
+The model axis is 1 here, so the reference's psum over it is the
+identity.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import exchange
+from .layers import rematerialize
 
 
 def _router(x, w_router, top_k: int):
@@ -75,24 +88,81 @@ def capacity(capacity_factor: float, top_k: int, n_tokens: int,
                             / n_experts)))
 
 
-def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
-            capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN on one device. x: (B, S, d) -> (out, aux_loss (scalar)).
+class _Exchange(torch.autograd.Function):
+    """``launch.mesh.exchange`` over a group, whose backward sends the
+    gradient rows back where they came from (the same exchange)."""
 
-    params: router (d, E), gate / up (E, d, ff), down (E, ff, d).
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g, ctx.group), None
+
+
+def _combine(ye, ids, wts, slot, valid, cap: int, N: int, d: int):
+    """Each token's top-k expert rows of ``ye`` (E * cap, d), weighted by
+    the router and summed; dropped assignments add nothing."""
+    top_k = ids.shape[1]
+    flat_valid = valid.reshape(-1)
+    rows = torch.where(flat_valid, ids.reshape(-1) * cap + slot.reshape(-1),
+                       torch.zeros_like(slot.reshape(-1)))
+    g = ye[rows]
+    g = torch.where(flat_valid[:, None], g, torch.zeros_like(g))
+    return torch.sum(g.reshape(N, top_k, d) * wts[..., None], dim=1)
+
+
+def _ep_run(xl, router, wg, wu, wd, *, n_experts, top_k, capacity_factor,
+            group, n_data):
+    """The reference's ``run`` on this rank's tokens ``xl`` (N_loc, d) and
+    its ``n_experts / n_data`` experts; returns (out, aux)."""
+    N, d = xl.shape
+    e_loc = n_experts // n_data
+    ids, wts, aux = _router(xl, router, top_k)
+    cap = capacity(capacity_factor, top_k, N, n_experts)
+    buf, slot, valid = _pack(xl, ids, n_experts, cap)
+    buf = _Exchange.apply(buf.reshape(n_data, e_loc, cap, d), group)
+    # axis 0 = the source rank; this rank's experts see every rank's rows
+    buf = buf.transpose(0, 1).reshape(e_loc, n_data * cap, d)
+    ye = _expert_ffn(buf, wg, wu, wd)
+    ye = ye.reshape(e_loc, n_data, cap, d).transpose(0, 1)
+    ye = _Exchange.apply(ye, group).reshape(n_experts * cap, d)
+    return _combine(ye, ids, wts, slot, valid, cap, N, d).to(xl.dtype), aux
+
+
+def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
+            capacity_factor: float, layout=None,
+            ep_axis: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN. x: (B, S, d) -> (out, aux_loss (scalar)).
+
+    params: router (d, E), gate / up (E, d, ff), down (E, ff, d); under
+    ``ep_axis`` the expert leaves hold this rank's E / n experts and the
+    aux loss is this rank's tokens'.
     """
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
+    if ep_axis is not None:
+        n_data = layout.size(ep_axis)
+        if n_experts % n_data:
+            raise ValueError(f"{n_experts} experts do not split over "
+                             f"{n_data} ranks of {ep_axis!r}")
+
+        def run(xl, router, wg, wu, wd):
+            return _ep_run(xl, router, wg, wu, wd, n_experts=n_experts,
+                           top_k=top_k, capacity_factor=capacity_factor,
+                           group=layout.group(ep_axis), n_data=n_data)
+
+        out, aux = rematerialize(run, xf, params["router"], params["gate"],
+                                 params["up"], params["down"])
+        return out.reshape(B, S, d), aux
     N = xf.shape[0]
     ids, wts, aux = _router(xf, params["router"], top_k)
     cap = capacity(capacity_factor, top_k, N, n_experts)
     buf, slot, valid = _pack(xf, ids, n_experts, cap)
     ye = _expert_ffn(buf, params["gate"], params["up"], params["down"])
     ye = ye.reshape(n_experts * cap, d)
-    flat_valid = valid.reshape(-1)
-    rows = torch.where(flat_valid, ids.reshape(-1) * cap + slot.reshape(-1),
-                       torch.zeros_like(slot.reshape(-1)))
-    g = ye[rows]
-    g = torch.where(flat_valid[:, None], g, torch.zeros_like(g))
-    out = torch.sum(g.reshape(N, top_k, d) * wts[..., None], dim=1)
+    out = _combine(ye, ids, wts, slot, valid, cap, N, d)
     return out.to(x.dtype).reshape(B, S, d), aux

@@ -1,7 +1,6 @@
 """Uniform model API over the decoder-LM and encoder-decoder families (the
-port of ``repro.models.registry``; ``abstract_params`` and
-``param_pspecs``, the reference's sharding and dry-run members, are not
-here)."""
+port of ``repro.models.registry``; ``abstract_params``, the reference's
+dry-run member, is not here)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,19 +13,32 @@ from . import lm, whisper
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
-    init_params: Callable     # (generator) -> params on generator.device
-    train_loss: Callable      # (params, batch) -> float32 scalar
+    init_params: Callable     # (generator, layout=None) -> params
+    param_pspecs: Callable    # () -> partition spec tuples, leaf for leaf
+    train_loss: Callable      # (params, batch, ctx=None) -> float32 scalar
     prefill: Callable         # (params, batch, S_cache) -> (h, cache)
     decode_step: Callable     # (params, cache, token, pos) -> (logits, cache)
     init_cache: Callable      # (B, S_max, device) -> cache pytree
+
+
+def _init(fn, cfg):
+    """``init_params(generator, layout=None)``: the one-device call stays
+    ``fn(cfg, generator)``, a layout is passed on."""
+    def init(gen, layout=None):
+        if layout is None:
+            return fn(cfg, gen)
+        return fn(cfg, gen, layout=layout)
+    return init
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "audio":
         return ModelAPI(
             cfg=cfg,
-            init_params=lambda gen: whisper.init_params(cfg, gen),
-            train_loss=lambda p, b: whisper.train_loss(p, b, cfg),
+            init_params=_init(whisper.init_params, cfg),
+            param_pspecs=lambda: whisper.param_pspecs(cfg),
+            train_loss=lambda p, b, ctx=None: whisper.train_loss(
+                p, b, cfg, ctx),
             prefill=lambda p, b, S: whisper.prefill(
                 p, b["frames"], b["tokens"], cfg, S),
             decode_step=lambda p, c, t, pos: whisper.decode_step(
@@ -36,8 +48,9 @@ def build(cfg: ModelConfig) -> ModelAPI:
         )
     return ModelAPI(
         cfg=cfg,
-        init_params=lambda gen: lm.init_params(cfg, gen),
-        train_loss=lambda p, b: lm.train_loss(p, b, cfg),
+        init_params=_init(lm.init_params, cfg),
+        param_pspecs=lambda: lm.param_pspecs(cfg),
+        train_loss=lambda p, b, ctx=None: lm.train_loss(p, b, cfg, ctx),
         prefill=lambda p, b, S: lm.prefill(
             p, b["tokens"], cfg, S, patches=b.get("patches")),
         decode_step=lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg),

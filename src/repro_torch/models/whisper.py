@@ -18,52 +18,56 @@ from .config import ModelConfig
 from .flash import flash_attention
 from .layers import (attention, chunked_cross_entropy, rematerialize,
                      rms_norm, rope)
-from .lm import (DTYPE, as_pos, act_dtype, draw_leaf, group_slice,
-                 logits_of, map_schema, positions_at, unstack_groups,
-                 valid_rows, write_rows)
+from .lm import (DTYPE, as_pos, act_dtype, group_slice, init_from_schema,
+                 logits_of, map_schema, positions_at, stack_schema,
+                 unstack_groups, valid_rows, write_rows)
 
 
 def _attn_block(d, H, hd, prefix=""):
     return {
-        prefix + "norm": ((d,), 0.0),
-        prefix + "wq": ((d, H, hd), 0.02),
-        prefix + "wk": ((d, H, hd), 0.02),
-        prefix + "wv": ((d, H, hd), 0.02),
-        prefix + "wo": ((H, hd, d), 0.02),
+        prefix + "norm": ((d,), 0.0, (None,)),
+        prefix + "wq": ((d, H, hd), 0.02, (None, "model", None)),
+        prefix + "wk": ((d, H, hd), 0.02, (None, "model", None)),
+        prefix + "wv": ((d, H, hd), 0.02, (None, "model", None)),
+        prefix + "wo": ((H, hd, d), 0.02, ("model", None, None)),
     }
 
 
 def _mlp_block(d, ff):
     return {
-        "norm2": ((d,), 0.0),
-        "w_up": ((d, ff), 0.02),
-        "w_down": ((ff, d), 0.02),
+        "norm2": ((d,), 0.0, (None,)),
+        "w_up": ((d, ff), 0.02, (None, "model")),
+        "w_down": ((ff, d), 0.02, ("model", None)),
     }
 
 
 def whisper_schema(cfg: ModelConfig):
+    """{path: (shape, scale, pspec)}, the pspecs the reference's as
+    tuples."""
     d, H, hd, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
     enc_layer = {**_attn_block(d, H, hd), **_mlp_block(d, ff)}
     dec_layer = {**_attn_block(d, H, hd),
                  **_attn_block(d, H, hd, prefix="x_"),
                  **_mlp_block(d, ff)}
-
-    def stack(sch, n):
-        return {k: ((n,) + shp, sc) for k, (shp, sc) in sch.items()}
-
     return {
-        "embed": ((cfg.vocab, d), 0.02),
-        "enc_groups": [stack(enc_layer, cfg.n_enc_layers)],
-        "enc_norm": ((d,), 0.0),
-        "groups": [stack(dec_layer, cfg.n_groups)],
-        "final_norm": ((d,), 0.0),
+        "embed": ((cfg.vocab, d), 0.02, ("model", None)),
+        "enc_groups": [stack_schema(enc_layer, cfg.n_enc_layers)],
+        "enc_norm": ((d,), 0.0, (None,)),
+        "groups": [stack_schema(dec_layer, cfg.n_groups)],
+        "final_norm": ((d,), 0.0, (None,)),
     }
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=DTYPE):
-    """Seeded parameters on ``generator.device`` (the port's own draws)."""
-    return map_schema(whisper_schema(cfg),
-                      lambda shp, sc: draw_leaf(shp, sc, generator, dtype))
+def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=DTYPE,
+                layout=None):
+    """Seeded parameters on ``generator.device`` (the port's own draws),
+    each rank's blocks under ``layout``."""
+    return init_from_schema(whisper_schema(cfg), generator, dtype, layout)
+
+
+def param_pspecs(cfg: ModelConfig):
+    """The partition spec of every parameter leaf, as tuples."""
+    return map_schema(whisper_schema(cfg), lambda shp, sc, ps: tuple(ps))
 
 
 def _self_attn(x, p, causal, positions, prefix="", kv_override=None,
@@ -114,12 +118,14 @@ def encode(params, frames, cfg: ModelConfig):
     return rms_norm(x, params["enc_norm"])
 
 
-def train_loss(params, batch, cfg: ModelConfig):
+def train_loss(params, batch, cfg: ModelConfig, ctx=None):
     """batch: {"frames": (B, F, d), "tokens": (B, S+1)}. The decoder's
     mean next-token cross-entropy (targets ``tokens[:, 1:]``, those < 0
     masked out): causal self-attention, cross-attention to the encoder
     states, the MLP; each decoder layer recomputed in the backward. A
-    float32 scalar."""
+    float32 scalar. Under ``ctx``'s layout the batch is this rank's rows
+    (``lm.Ctx.rows``); nothing else depends on it (no MoE)."""
+    del ctx
     enc = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]

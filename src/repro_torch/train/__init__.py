@@ -1,15 +1,20 @@
-"""repro_torch.train — the LM / Whisper training runtime on one device
-and the in-house AdamW, which the soft barycenters step with too.
+"""repro_torch.train — the LM / Whisper training runtime, on one device
+or data-parallel over ranks, and the in-house AdamW, which the soft
+barycenters step with too.
 
   optimizer.py    ``AdamW`` (pytrees, a callable lr, float32 or bfloat16
                   moments, an optional float32 master copy, in-place
-                  ``update_``), ``AdamState``, ``cosine_schedule``
+                  ``update_``, ``state_pspecs``), ``AdamState``,
+                  ``cosine_schedule``
   train_step.py   ``make_train_step`` (microbatches accumulated in
-                  float32), ``make_serve_step``, ``make_prefill``
+                  float32; under a rank layout the gradients synced per
+                  microbatch or once a step, optionally int8),
+                  ``int8_all_reduce``, ``make_serve_step``,
+                  ``make_prefill``
   checkpoint.py   ``save_checkpoint`` / ``restore_checkpoint`` /
                   ``list_checkpoints`` and the async ``CheckpointManager``
                   (the reference's layout: either package restores the
-                  other's checkpoints)
+                  other's checkpoints, at any rank count)
   data.py         ``TokenPipeline``: batch = f(seed, step), with prefetch
 """
 from .checkpoint import (CheckpointManager, list_checkpoints,

@@ -13,8 +13,16 @@ checkpoint of either package restores in the other, bit for bit. An int
 leaf (``AdamState.step``) is written as an int32 scalar. Each leaf's file
 is hashed (sha256) and checked on restore; a half-written checkpoint is
 invisible (a ``.tmp`` directory renamed on commit); ``latest_step`` is the
-newest complete one. The reference's elastic restore across meshes
-belongs to the multi-rank LM pieces.
+newest complete one.
+
+Under a rank layout (``launch.mesh.Layout``) with the trees' partition
+specs (``specs``, as ``lm.param_pspecs`` and ``AdamW.state_pspecs`` give
+them), a save gathers each split leaf whole, one leaf at a time, to rank
+0, which alone writes the same format; the other ranks wait for it (the
+reference writes ``np.asarray`` of its sharded arrays, ``:65``). A
+restore reads whole leaves on every rank and keeps the rank's block (the
+reference's ``restore_checkpoint(..., shardings=)``). So a checkpoint
+moves between rank counts, and between the two packages, unchanged.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import gather_leaf, local_slice, world
 from repro_torch.pytree import tree_map
 
 
@@ -102,10 +111,39 @@ def _write(directory: str, step: int, host_tree) -> str:
     return final
 
 
-def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Blocking save of a pytree of tensors (and ints). Returns the
-    committed path."""
-    return _write(directory, step, tree_map(_to_numpy, tree))
+def _barrier(layout) -> None:
+    if layout is not None and world()[1] > 1:
+        torch.distributed.barrier()
+
+
+def _host_tree(tree, specs, layout):
+    """The tree's leaves whole and on the host on rank 0 (None elsewhere):
+    each split leaf is gathered from its ranks, one leaf at a time, by
+    every rank."""
+    if specs is None or layout is None:
+        return tree_map(_to_numpy, tree)
+    writer = world()[0] == 0
+
+    def one(leaf, spec):
+        if isinstance(leaf, torch.Tensor):
+            leaf = gather_leaf(leaf, spec, layout)
+        return _to_numpy(leaf) if writer else None
+
+    return tree_map(one, tree, specs)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, specs=None,
+                    layout=None) -> str:
+    """Blocking save of a pytree of tensors (and ints). Under ``layout``
+    every rank calls it with its blocks and the trees' ``specs``; rank 0
+    writes the whole leaves and the others wait. Returns the committed
+    path."""
+    host = _host_tree(tree, specs, layout)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if world()[0] == 0 or layout is None:
+        final = _write(directory, step, host)
+    _barrier(layout)
+    return final
 
 
 def list_checkpoints(directory: str):
@@ -134,51 +172,66 @@ def _from_numpy(arr: np.ndarray, dtype: str, like):
     return t.to(like.device) if isinstance(like, torch.Tensor) else t
 
 
-def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
+def restore_checkpoint(directory: str, step: int, like: Any, specs=None,
+                       layout=None) -> Any:
     """Restore into the structure of ``like`` (a pytree of tensors and
     ints; its leaves' values are not read), each tensor on the ``like``
-    leaf's device. Raises ``IOError`` where a leaf's sha256 does not
-    match the manifest's."""
+    leaf's device; under ``layout`` each leaf is read whole and cut to
+    this rank's block by its entry of ``specs``. Raises ``IOError``
+    where a leaf's sha256 does not match the manifest's."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {leaf["path"]: leaf for leaf in manifest["leaves"]}
 
-    def load(lpath, like_leaf):
+    def load(lpath, like_leaf, spec):
         meta = by_path[lpath]
         if meta.get("none"):
             return None
         fpath = os.path.join(path, meta["file"])
         if _sha256(fpath) != meta["sha256"]:
             raise IOError(f"checksum mismatch for {lpath}")
-        return _from_numpy(np.load(fpath), meta["dtype"], like_leaf)
+        whole = np.load(fpath)
+        if spec is not None and isinstance(like_leaf, torch.Tensor):
+            cut = local_slice(_from_numpy(whole, meta["dtype"], None),
+                              spec, layout)
+            return cut.to(like_leaf.device)
+        return _from_numpy(whole, meta["dtype"], like_leaf)
 
-    def rebuild(node, prefix=""):
+    def rebuild(node, spec, prefix=""):
         if isinstance(node, dict):
-            return {k: rebuild(node[k], f"{prefix}.{k}") for k in node}
+            return {k: rebuild(node[k], None if spec is None else spec[k],
+                               f"{prefix}.{k}") for k in node}
         if isinstance(node, (list, tuple)):
-            out = [rebuild(v, f"{prefix}[{i}]") for i, v in enumerate(node)]
+            out = [rebuild(v, None if spec is None else spec[i],
+                           f"{prefix}[{i}]") for i, v in enumerate(node)]
             if isinstance(node, tuple) and hasattr(node, "_fields"):
                 return type(node)(*out)
             return type(node)(out)
-        return load(prefix, node)
+        return load(prefix, node, spec)
 
-    return rebuild(like)
+    return rebuild(like, specs if layout is not None else None)
 
 
 class CheckpointManager:
     """Async writer + retention. ``save`` copies the tree to the host and
     returns; a thread writes it (the previous write is joined first: at
-    most one in flight), then deletes all but the newest ``keep_last``."""
+    most one in flight), then deletes all but the newest ``keep_last``.
+    Under ``layout`` every rank calls ``save`` (with the trees' specs)
+    and ``wait``; rank 0 writes, and ``wait`` holds the other ranks until
+    its write is committed."""
 
-    def __init__(self, directory: str, keep_last: int = 3):
+    def __init__(self, directory: str, keep_last: int = 3, layout=None):
         self.directory = directory
         self.keep_last = keep_last
+        self.layout = layout
         self._thread: Optional[threading.Thread] = None
 
-    def save(self, step: int, tree: Any):
+    def save(self, step: int, tree: Any, specs=None):
         self.wait()
-        host_tree = tree_map(_to_numpy, tree)
+        host_tree = _host_tree(tree, specs, self.layout)
+        if self.layout is not None and world()[0] != 0:
+            return
 
         def work():
             _write(self.directory, step, host_tree)
@@ -191,6 +244,7 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(self.layout)
 
     def _gc(self):
         steps = list_checkpoints(self.directory)

@@ -21,8 +21,15 @@ The parameters are a pytree (dicts and lists of tensors) or one tensor.
 the tensors it is given (the reference's donated buffers), so a model
 that fills most of the card can step. Both work through each leaf in
 blocks of ``BLOCK`` elements, so no float32 temporary is larger than one
-block. The reference's sharding specs (``state_pspecs``, ZeRO-1) belong to
-the multi-rank LM pieces and are not here.
+block.
+
+Under a rank layout each rank's parameters are its own blocks
+(``lm.init_params(..., layout=)``), so ``init`` makes each leaf's state
+where the leaf lives: an expert's m, v and master exist only on the rank
+that owns the expert, as the reference's ``init`` of sharded parameters
+places them. ``state_pspecs`` gives the state's partition specs as
+tuples, with the reference's ZeRO-1 rule; a runtime ZeRO-1 (state split
+over "data" where the parameter is not) is not here.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Any, Callable, NamedTuple, Union
 
 import torch
 
+from repro_torch.launch.mesh import spec_axes
 from repro_torch.pytree import tree_leaves, tree_map
 
 # elements of a leaf updated at once (64 MiB a float32 temporary)
@@ -142,6 +150,53 @@ class AdamW:
         """One step written into ``params`` and ``state``'s tensors in
         place; returns them, the state with its step advanced."""
         return self._apply(grads, state, params, fresh=False)
+
+    def state_pspecs(self, param_pspecs, zero1: bool = False,
+                     shapes=None, data_size: int = 16) -> AdamState:
+        """The optimizer state's partition specs (tuples) for parameters
+        placed by ``param_pspecs``: the step replicated, m, v and master
+        as their parameter. With ``zero1`` every state leaf not yet split
+        over "data" is split over it along its largest still-unsplit
+        dimension of ``shapes`` (a pytree of shapes, or of anything with
+        ``.shape``) that ``data_size`` divides (the first such on ties);
+        a leaf with none stays as it is."""
+        def z1(ps, shp):
+            ps = tuple(ps)
+            used = set(spec_axes(ps))
+            if "data" in used:
+                return ps
+            dims = list(ps) + [None] * (len(shp) - len(ps))
+            best, best_sz = -1, 0
+            for i, (axes, sz) in enumerate(zip(dims, shp)):
+                if axes is None and sz % data_size == 0 and sz > best_sz:
+                    best, best_sz = i, sz
+            if best < 0:
+                return ps
+            dims[best] = "data"
+            return tuple(dims)
+
+        if zero1:
+            if shapes is None:
+                raise ValueError("zero1 needs the parameters' shapes")
+            mv = _map_specs(lambda ps, s: z1(ps, tuple(getattr(s, "shape",
+                                                               s))),
+                            param_pspecs, shapes)
+        else:
+            mv = _map_specs(lambda ps, s: tuple(ps), param_pspecs, None)
+        return AdamState((), mv, mv, mv if self.keep_master else None)
+
+
+def _map_specs(fn, specs, shapes):
+    """``fn(spec, shape)`` over a pytree of partition-spec tuples (dicts
+    and lists; a tuple is one spec), with the matching leaf of ``shapes``
+    (None where there are no shapes)."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, None if shapes is None else shapes[k])
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v, None if shapes is None else shapes[i])
+                for i, v in enumerate(specs)]
+    return fn(specs, shapes)
 
 
 def _pick_tree(outs, i):

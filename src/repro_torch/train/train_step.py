@@ -1,14 +1,42 @@
 """Train- and serve-step factories (the port of
-``repro.train.train_step``, one device).
+``repro.train.train_step``).
 
 ``make_train_step`` returns ``step(params, opt_state, batch) -> (params,
 opt_state, metrics)``: the loss's gradients by autograd, then one AdamW
-step. With ``microbatch`` m > 1 the batch is cut into m slices along its
-first axis, each slice's gradients are summed into float32 buffers and
-divided by m (the reference's ``lax.scan`` with float32 accumulators), as
-is the loss. Metrics are the loss and the gradients' float32 global
-norm. The multi-rank options (``grad_compression``, ``grad_sync=
-"deferred"``) belong to the multi-rank LM pieces and raise here.
+step. ``batch`` is the global batch. With ``microbatch`` m > 1 the batch
+is cut into m slices along its first axis, each slice's gradients are
+summed into float32 buffers and divided by m (the reference's
+``lax.scan`` with float32 accumulators), as is the loss. Metrics are the
+loss and the gradients' float32 global norm.
+
+Under a ``launch.mesh.Layout`` with n ranks along the data-parallel axes
+(``lm.Ctx.dp``) the step is data-parallel, the counterpart of the
+reference's SPMD step on its mesh:
+
+- each rank computes on its rows of each slice (``Ctx.rows``), and its
+  loss is the mean over them;
+- ``grad_sync="per_microbatch"`` (the default) sums each slice's
+  gradients over the data ranks, in their dtype, before they are
+  accumulated; ``"deferred"`` accumulates the rank's m slices of its own
+  rows in float32 and syncs once a step (the reference's ``shard_map``
+  over the data axes);
+- a leaf is summed over the data-parallel axes it is replicated on. An
+  expert leaf (split over "data") is not: the dispatch exchange's
+  backward already brought every rank's tokens to its owner, and under a
+  pod axis it is summed over the pods. Then every leaf is divided by n
+  (and m): each rank's loss is over its 1 / n of the rows;
+- ``grad_compression="int8"`` makes the deferred sync an
+  ``int8_all_reduce``; ``"int8_pod"`` (per microbatch, with a pod axis)
+  syncs within each pod, then sums the pods' gradients through
+  ``int8_all_reduce`` over the pod axis, as the reference does (a sum:
+  the reference does not divide by the pod count); without a pod axis it
+  is the plain step. Other combinations are the plain step, as in the
+  reference;
+- the loss is the mean over the data ranks, the grad norm sums the split
+  leaves' squares over their ranks, and ``AdamW.update_`` steps each
+  rank's own leaves (an expert's state lives on its owner).
+
+Without a layout every rank is on its own (one device).
 
 ``make_serve_step`` and ``make_prefill`` run under
 ``torch.inference_mode()``.
@@ -19,70 +47,183 @@ from typing import Optional
 
 import torch
 
+from repro_torch.launch.mesh import all_reduce_, sharded_dims, spec_axes
+from repro_torch.models.lm import Ctx
 from repro_torch.pytree import tree_leaves, tree_map
 
 from .optimizer import AdamW, BLOCK
 
+GRAD_SYNCS = ("per_microbatch", "deferred")
+COMPRESSIONS = (None, "int8", "int8_pod")
 
-def grad_norm(grads) -> torch.Tensor:
+
+def int8_all_reduce(tree, group):
+    """The reference's ``_int8_psum`` over ``group``, per leaf: the shared
+    scale max(|g|_max, 1e-12) / 127 (in the leaf's dtype) through a MAX
+    all-reduce, ``clip(round(g / scale), -127, 127)`` as int32 summed
+    over the group, times the scale in float32, cast back. (The
+    reference's first quantize-and-psum is dead code and is not
+    copied.)"""
+    def one(g):
+        scale = torch.clamp_min(torch.max(torch.abs(g)), 1e-12) / 127.0
+        shared = all_reduce_(scale.float().reshape(1), group, "max")
+        scale = shared[0].to(g.dtype)
+        q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int32)
+        all_reduce_(q, group, "sum")
+        return (q.float() * scale.float()).to(g.dtype)
+    return tree_map(one, tree)
+
+
+def grad_norm(grads, specs=None, layout=None) -> torch.Tensor:
     """sqrt of the sum of every gradient entry squared, in float32 (a
-    block of ``BLOCK`` entries at a time)."""
+    block of ``BLOCK`` entries at a time). Under ``layout`` a leaf split
+    over ranks (its entry of ``specs``, the partition specs in leaf
+    order) adds its squares from every rank."""
+    split = {}
     tot = None
-    for g in tree_leaves(grads):
-        flat = g.reshape(-1)
-        for i in range(0, flat.numel(), BLOCK):
-            part = torch.sum(flat[i:i + BLOCK].to(torch.float32) ** 2)
+    flat = tree_leaves(grads)
+    for g, spec in zip(flat, specs or [()] * len(flat)):
+        flat_g = g.reshape(-1)
+        part = None
+        for i in range(0, flat_g.numel(), BLOCK):
+            sq = torch.sum(flat_g[i:i + BLOCK].to(torch.float32) ** 2)
+            part = sq if part is None else part + sq
+        names = tuple(a for _, n in sharded_dims(spec, layout) for a in n)
+        if names:
+            split[names] = part if names not in split else split[names] + part
+        else:
             tot = part if tot is None else tot + part
+    for names in sorted(split):
+        part = all_reduce_(split[names].reshape(1), layout.group(names))[0]
+        tot = part if tot is None else tot + part
     return torch.sqrt(tot)
 
 
-def value_and_grad(api, params, batch):
+def leaf_specs(params, pspecs) -> list:
+    """The partition spec of each leaf of ``params``, in leaf order (the
+    spec tree is read by the parameters' keys)."""
+    out = []
+    tree_map(lambda p, s: out.append(tuple(s)), params, pspecs)
+    return out
+
+
+def value_and_grad(api, params, batch, ctx=None):
     """(loss, gradients in the parameters' dtypes) of ``api.train_loss``
     at ``params``; the gradients are taken with respect to detached
     copies that share the parameters' storage."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss = api.train_loss(leaves, batch)
+        loss = api.train_loss(leaves, batch, ctx)
         grads = torch.autograd.grad(loss, tree_leaves(leaves))
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
+def _slices(batch, m: int):
+    """The m equal slices of a batch along its first axis."""
+    return [{k: v[i * (v.shape[0] // m):(i + 1) * (v.shape[0] // m)]
+             for k, v in batch.items()} for i in range(m)]
+
+
 def make_train_step(api, opt: AdamW, *, microbatch: int = 1,
                     grad_compression: Optional[str] = None,
-                    grad_sync: str = "per_microbatch"):
-    """One training step of ``api`` under ``opt``. The parameters and the
-    optimizer state are updated in place (``AdamW.update_``, as the
-    reference donates them) and returned."""
-    if grad_compression is not None or grad_sync != "per_microbatch":
-        raise NotImplementedError(
-            "grad_compression and grad_sync='deferred' sync gradients "
-            "across ranks: the multi-rank LM pieces (ROADMAP A4c)")
+                    grad_sync: str = "per_microbatch", layout=None):
+    """One training step of ``api`` under ``opt``, data-parallel over
+    ``layout``'s data axes when one is given (see the module docstring).
+    The parameters and the optimizer state are updated in place
+    (``AdamW.update_``, as the reference donates them) and returned.
+    ``step.grads(params, batch)`` is the step's (loss, synced gradients)
+    without the update."""
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
+    if grad_sync not in GRAD_SYNCS:
+        raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}")
+    if grad_compression not in COMPRESSIONS:
+        raise ValueError(f"grad_compression must be one of {COMPRESSIONS}")
+    ctx = Ctx(layout)
+    pspecs = api.param_pspecs()
+    dp = tuple(a for a in ctx.dp if layout is not None and a in layout.axes)
+    n_dp = ctx.n_dp
+    pod = (grad_compression == "int8_pod" and grad_sync == "per_microbatch"
+           and layout is not None and "pod" in layout.axes)
 
-    def grads_of(params, batch):
-        if microbatch == 1:
-            return value_and_grad(api, params, batch)
+    def sync(grads, over, compress=False):
+        """Each leaf summed over the axes of ``over`` it is replicated on
+        (through ``int8_all_reduce`` when ``compress``), in place where
+        it is not compressed."""
+        if not over or layout.size(over) == 1:
+            return grads
+        specs = leaf_specs(grads, pspecs)
+        flat = tree_leaves(grads)
+        out = list(flat)
+        buckets = {}
+        for i, (g, spec) in enumerate(zip(flat, specs)):
+            names = tuple(a for a in over if a not in spec_axes(spec))
+            if names and layout.size(names) > 1:
+                buckets.setdefault(names, []).append(i)
+        for names, idx in buckets.items():
+            group = layout.group(names)
+            if compress:
+                for i, g in zip(idx, int8_all_reduce([flat[i] for i in idx],
+                                                     group)):
+                    out[i] = g
+            else:
+                for i in idx:
+                    all_reduce_(flat[i], group)
+        it = iter(out)
+        return tree_map(lambda _: next(it), grads)
+
+    def mean_loss(loss, over):
+        if not over or layout.size(over) == 1:
+            return loss
+        return all_reduce_(loss.reshape(1).clone(),
+                           layout.group(over))[0] / layout.size(over)
+
+    def accumulate(params, slices, over, f32):
+        """(mean loss, summed gradients) over ``slices``: each slice's
+        gradients summed over ``over``, then added up in float32 (past one
+        slice, or always with ``f32``)."""
+        if len(slices) == 1 and not f32:
+            loss, g = value_and_grad(api, params, slices[0], ctx)
+            return loss, sync(g, over)
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
         ltot = None
-        for i in range(microbatch):
-            sl = {k: v[i * (v.shape[0] // microbatch):
-                       (i + 1) * (v.shape[0] // microbatch)]
-                  for k, v in batch.items()}
-            loss, g = value_and_grad(api, params, sl)
+        for sl in slices:
+            loss, g = value_and_grad(api, params, sl, ctx)
+            g = sync(g, over)
             tree_map(lambda a, gg: a.add_(gg.to(torch.float32)), acc, g)
             del g
             ltot = loss if ltot is None else ltot + loss
-        return ltot / microbatch, tree_map(lambda a: a.div_(microbatch), acc)
+        return ltot / len(slices), acc
+
+    def scaled(g, n):
+        return g if n == 1 else tree_map(lambda t: t.div_(n), g)
+
+    def grads_of(params, batch):
+        if grad_sync == "deferred":
+            loss, g = accumulate(params, _slices(ctx.rows(batch), microbatch),
+                                 (), True)
+            # the one sync over the data ranks a step
+            g = sync(g, dp, compress=grad_compression == "int8")
+            return mean_loss(loss, dp), scaled(g, microbatch * n_dp)
+        slices = [ctx.rows(sl) for sl in _slices(batch, microbatch)]
+        if pod:
+            inner = tuple(a for a in dp if a != "pod")
+            loss, g = accumulate(params, slices, inner, False)
+            g = scaled(g, microbatch * layout.size(inner))
+            g = sync(g, ("pod",), compress=True)
+            return mean_loss(mean_loss(loss, inner), ("pod",)), g
+        loss, g = accumulate(params, slices, dp, False)
+        return mean_loss(loss, dp), scaled(g, microbatch * n_dp)
 
     def step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)
-        gnorm = grad_norm(grads)
+        gnorm = grad_norm(grads, leaf_specs(grads, pspecs), layout)
         new_params, new_opt = opt.update_(grads, opt_state, params)
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
+    step.grads = grads_of
     return step
 
 

@@ -294,6 +294,11 @@ def test_resume_reproduces_uninterrupted_run(tmp_path):
 
 
 def test_train_refuses_multi_rank_axes(tmp_path):
-    with pytest.raises(NotImplementedError, match="A4c"):
+    """The model axis waits for tensor parallelism; a data axis of 2
+    needs two ranks (tests/test_torch_lm_dp_train.py runs them)."""
+    with pytest.raises(NotImplementedError, match="A4c-model"):
+        train("minicpm-2b", steps=1, ckpt_dir=str(tmp_path), model_axis=2,
+              device="cpu")
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         train("minicpm-2b", steps=1, ckpt_dir=str(tmp_path), data_axis=2,
               device="cpu")
