@@ -188,6 +188,32 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    and its resume; ``examples/align_whisper_torch.py`` on the card (its
    support and anchors equal to the CPU's on the same weights) and
    ``examples/serve_lm_torch.py``. A rank that fails fails the phase.
+3k. Tensor parallelism over the model axis (plain PyTorch and
+   torch.distributed, as 3j). yi-6b at published width, cut to the most
+   layers whose two model ranks' blocks (16 bytes a parameter; the
+   leaves not split over "model" whole on each) fit in 60 GB
+   (``_tp_cut``), on 2 gloo ranks sharing the card at (data, model) =
+   (1, 2), batch 8 x 64, 4 steps: each step's time, loss, grad norm,
+   peak memory per rank, each collective's calls, host time and bytes.
+   Gates as 3j's: equal finite losses, every leaf moved, the leaves not
+   split over "model" equal bit for bit across the ranks after each
+   step, the two-rank save restored at one rank to each rank's bits.
+   jamba-v0.1-52b at published width, one group (8 of 32 layers): a
+   decode of batch 4 (an 8-token prompt fed step by step, then greedy
+   steps, 32 in all) from ``init_cache`` at one rank on the card, freed,
+   then on 2 model ranks through caches split over the sequence
+   (``make_serve_step(api, layout)``), in bf16 and on its float32 draw:
+   row by row, the tokens equal up to the first near-tie and the logits
+   within 0.1 (float32) or 0.4 (bf16, whose row-split sums round
+   otherwise) of the one-rank logits' RMS, a row leaving the comparison
+   where its MoE routing leaves one rank's, which must be at a router
+   near-tie; ms a step beside the weight-bytes bound. The ten reduced configurations
+   (and yi-6b with ``attn_shard="head_dim"``) at (1, 2), and
+   deepseek-v2-lite-16b and jamba-v0.1-52b at (2, 2) (expert- and
+   model-parallel at once), float32 twins: the loss and every gathered
+   gradient on the card against the CPU; ``python -m
+   torch.distributed.run ... repro_torch.launch.train --model-axis 2``
+   (gloo, reduced minicpm-2b) and its resume at ``--model-axis 1``.
    For each path (each part of 3f and 3g) the launch counters are set to
    0 just before and read just after, and each of its kernels must have
    launched. A torch.profiler pass, after 3g and before 3h, gives the
@@ -3384,11 +3410,21 @@ def _bits_sums(t):
     return [s1, s2]
 
 
-def _dp_rank_full(out):
-    """One of ``DP_RANKS`` gloo ranks on the card: ``DP_ARCH`` at published
-    width, cut in depth (``_dp_cut``), ``DP_STEPS`` data-parallel steps of
-    batch ``DP_BATCH`` x ``DP_SEQ``; then the parameters saved at two ranks.
-    Writes ``OUT/full_r<rank>.json``."""
+def _full_kind(kind):
+    """The full-width multi-rank training run of phase 3j ("dp") or 3k
+    ("tp"): (architecture, depth cut, the layout's shape for n ranks,
+    batch, sequence, steps)."""
+    if kind == "dp":
+        return (DP_ARCH, _dp_cut, lambda n: (n, 1), DP_BATCH, DP_SEQ,
+                DP_STEPS)
+    return TP_ARCH, _tp_cut, lambda n: (1, n), TP_BATCH, TP_SEQ, TP_STEPS
+
+
+def _full_rank(out, kind):
+    """One gloo rank on the card of ``_full_kind(kind)``'s run: the
+    architecture at published width, cut in depth, on a (data, model)
+    layout, its steps; then the parameters saved under the layout. Writes
+    ``OUT/<kind>_r<rank>.json``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh
@@ -3397,12 +3433,13 @@ def _dp_rank_full(out):
     from repro_torch.train.checkpoint import save_checkpoint
     from repro_torch.train.optimizer import AdamW, cosine_schedule
     from repro_torch.train.train_step import leaf_specs, make_train_step
+    arch, cut, shape, batch, seq, steps = _full_kind(kind)
     device = mesh.init_group("gloo")
     torch.cuda.set_per_process_memory_fraction(DP_MEM_FRACTION, device)
     torch.backends.cuda.matmul.allow_tf32 = False
     rank, size = mesh.world()
-    layout = mesh.make_host_mesh(size, 1)
-    cfg, budget = _dp_cut(get_config(DP_ARCH))
+    layout = mesh.make_host_mesh(*shape(size))
+    cfg, budget = cut(get_config(arch))
     api = build(cfg)
     pspecs = api.param_pspecs()
     t0 = time.perf_counter()
@@ -3412,13 +3449,13 @@ def _dp_rank_full(out):
     init_s = time.perf_counter() - t0
     specs = leaf_specs(params, pspecs)
     host = [t.to("cpu", copy=True) for t in tree_leaves(params)]
-    opt = AdamW(lr=cosine_schedule(TRAIN_LR, 1, DP_STEPS))
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, 1, steps))
     step_fn = make_train_step(api, opt, layout=layout)
     state = opt.init(params)
     rows = []
     with _CollectiveLog() as coll:
-        for s in range(DP_STEPS):
-            b = _train_batch(cfg, DP_BATCH, DP_SEQ, 0, s, device)
+        for s in range(steps):
+            b = _train_batch(cfg, batch, seq, 0, s, device)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             coll.take()
@@ -3444,26 +3481,29 @@ def _dp_rank_full(out):
     del host, state
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    save_checkpoint(str(Path(out) / "ckpt"), DP_STEPS, {"params": params},
-                    specs={"params": pspecs}, layout=layout)
+    save_checkpoint(str(Path(out) / f"{kind}_ckpt"), steps,
+                    {"params": params}, specs={"params": pspecs},
+                    layout=layout)
     save_s = time.perf_counter() - t1
     blocks = [_bits_sums(t) for t in tree_leaves(params)]
-    Path(out, f"full_r{rank}.json").write_text(json.dumps({
+    Path(out, f"{kind}_r{rank}.json").write_text(json.dumps({
         "n_layers": cfg.n_layers, "budget": budget, "init_s": init_s,
         "params": sum(t.numel() for t in tree_leaves(params)),
-        "rows": rows, "moved": moved, "save_s": save_s,
-        "blocks": blocks, "specs": [list(map(str, sp)) for sp in specs]}))
+        "rows": rows, "moved": moved, "save_s": save_s, "blocks": blocks,
+        "split_dims": [[d for d, _ in mesh.sharded_dims(sp, layout)]
+                       for sp in specs]}))
     mesh.destroy_group()
 
 
-def _dp_rank_card(out, device):
-    """One of ``DP_RANKS`` gloo ranks on ``device``: for each of
-    ``DP_CARD_ARCHS`` reduced, float32 twin of seeded weights (drawn on
-    the CPU), each of ``DP_MODES``' synced gradients of one step on the
-    same batch. Rank 0 writes ``OUT/<device>.npz``."""
+def _card_rank(out, device, shape, modes, *cases):
+    """A gloo rank on ``device`` of a (data, model) layout of ``shape``
+    ("D,M"): for each case (``_tp_case``), the reduced float32 twin of
+    seeded weights (drawn on the CPU), the loss and synced gradients of
+    one step (gathered whole) in each sync mode (``modes``: "all" for
+    ``DP_MODES``, "plain" for per microbatch alone). Rank 0 writes
+    ``OUT/<device>_<D>_<M>.npz``."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config, reduced
     from repro_torch.launch import mesh
     from repro_torch.launch.mesh import gather_leaf
     from repro_torch.models import build
@@ -3473,38 +3513,42 @@ def _dp_rank_card(out, device):
     dev = mesh.init_group("gloo", device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(1)
-    rank, size = mesh.world()
-    layout = mesh.make_host_mesh(size, 1)
+    d, m = (int(x) for x in shape.split(","))
+    layout = mesh.make_host_mesh(d, m)
     res = {}
-    for arch in DP_CARD_ARCHS:
-        cfg = reduced(get_config(arch))
+    for case in cases:
+        cfg = _tp_case(case)
         api = build(cfg)
         params = tree_map(lambda t: t.float().to(dev), api.init_params(
             torch.Generator().manual_seed(4), layout=layout))
         specs = leaf_specs(params, api.param_pspecs())
         batch = _train_batch(cfg, DP_CARD_BATCH, DP_CARD_SEQ, 4, 0, dev)
-        for sync, m, comp in DP_MODES:
+        for sync, mb, comp in (DP_MODES if modes == "all"
+                               else (DP_MODES[0],)):
             loss, g = make_train_step(
-                api, AdamW(), layout=layout, microbatch=m, grad_sync=sync,
+                api, AdamW(), layout=layout, microbatch=mb, grad_sync=sync,
                 grad_compression=comp).grads(params, batch)
-            key = f"{arch}|{sync}|{m}|{comp}"
+            key = f"{case}|{sync}|{mb}|{comp}"
             res[key + "|loss"] = np.asarray(float(loss))
             for i, (t, sp) in enumerate(zip(tree_leaves(g), specs)):
                 res[f"{key}|{i}"] = gather_leaf(t, sp, layout).float().cpu(
                 ).numpy()
-    if rank == 0:
-        np.savez(Path(out) / f"{torch.device(device).type}.npz", **res)
+    if mesh.world()[0] == 0:
+        np.savez(Path(out) / f"{torch.device(device).type}_{d}_{m}.npz",
+                 **res)
     mesh.destroy_group()
 
 
 def _dp_rank_main(argv) -> int:
-    """The rank program of phase 3j (``chip_smoke.py --dp-rank JOB OUT
-    [DEVICE]`` under ``python -m torch.distributed.run``)."""
+    """The rank program of phases 3j and 3k (``chip_smoke.py --dp-rank JOB
+    OUT [ARGS]`` under ``python -m torch.distributed.run``)."""
     job, out, *rest = argv
-    if job == "full":
-        _dp_rank_full(out)
+    if job in ("dp", "tp"):
+        _full_rank(out, job)
+    elif job == "card":
+        _card_rank(out, *rest)
     else:
-        _dp_rank_card(out, rest[0])
+        _tp_rank_decode(out)
     return 0
 
 
@@ -3543,9 +3587,13 @@ def _dp_wait(proc, t0, what):
     return out, wall
 
 
-def _dp_full(tmp):
-    """``DP_ARCH`` at published width on ``DP_RANKS`` gloo ranks sharing
-    the card, then its two-rank save restored at one rank here."""
+def _full_run(tmp, kind):
+    """``_full_kind(kind)``'s run on ``DP_RANKS`` gloo ranks sharing the
+    card (3j: data axis 2, the MoE expert-parallel; 3k: model axis 2),
+    then its save restored whole at one rank here. Gates: every loss and
+    grad norm finite and equal on the ranks, every leaf moved, the
+    leaves no rank splits equal bit for bit across the ranks after each
+    step, each rank's block of the restored leaves equal to its bits."""
     import dataclasses
     import math
     import torch
@@ -3553,23 +3601,29 @@ def _dp_full(tmp):
     from repro_torch.models.lm import map_schema, model_schema
     from repro_torch.pytree import tree_leaves
     from repro_torch.train.checkpoint import restore_checkpoint
-    proc, t0 = _dp_launch(DP_RANKS, ["full", str(tmp)])
-    _, wall = _dp_wait(proc, t0, f"{DP_ARCH} on {DP_RANKS} gloo ranks")
-    ranks = [json.loads((tmp / f"full_r{r}.json").read_text())
+    arch, _, shape, batch, seq, steps = _full_kind(kind)
+    proc, t0 = _dp_launch(DP_RANKS, [kind, str(tmp)])
+    _, wall = _dp_wait(proc, t0, f"{arch} on {DP_RANKS} gloo ranks")
+    ranks = [json.loads((tmp / f"{kind}_r{r}.json").read_text())
              for r in range(DP_RANKS)]
     r0 = ranks[0]
-    full = get_config(DP_ARCH)
-    log(f"  {DP_ARCH} at published width (d {full.d_model}, MLA kv_lora "
-        f"{full.kv_lora_rank}, {full.n_experts} routed experts top-"
-        f"{full.top_k}, {full.n_shared_experts} shared, moe_ff "
-        f"{full.moe_d_ff}, vocab {full.vocab}), {r0['n_layers']} of "
-        f"{full.n_layers} layers (the most whose {DP_RANKS} ranks' state "
-        f"fits in {DP_BYTES / 1e9:.0f} GB: {r0['budget'] / 1e9:.1f} GB), "
-        f"{DP_RANKS} gloo ranks on one card, data axis {DP_RANKS}, batch "
-        f"{DP_BATCH} x {DP_SEQ}, {DP_STEPS} steps; {r0['params'] / 1e9:.3f} "
-        f"B parameters a rank; launch {wall:.1f} s (draw {r0['init_s']:.1f}"
-        f" s, save {r0['save_s']:.1f} s)")
-    for s in range(DP_STEPS):
+    full = get_config(arch)
+    if kind == "dp":
+        what = (f"MLA kv_lora {full.kv_lora_rank}, {full.n_experts} routed "
+                f"experts top-{full.top_k}, {full.n_shared_experts} shared, "
+                f"moe_ff {full.moe_d_ff}")
+    else:
+        what = (f"{full.n_heads} query heads, {full.n_kv_heads} KV heads, "
+                f"ff {full.d_ff}, attn_shard {full.attn_shard!r}")
+    log(f"  {arch} at published width (d {full.d_model}, {what}, vocab "
+        f"{full.vocab}), {r0['n_layers']} of {full.n_layers} layers (the "
+        f"most whose {DP_RANKS} ranks' state fits in {DP_BYTES / 1e9:.0f} "
+        f"GB: {r0['budget'] / 1e9:.1f} GB), {DP_RANKS} gloo ranks on one "
+        f"card, (data, model) = {shape(DP_RANKS)}, batch {batch} x {seq}, "
+        f"{steps} steps; {r0['params'] / 1e9:.3f} B parameters a rank; "
+        f"launch {wall:.1f} s (draw {r0['init_s']:.1f} s, save "
+        f"{r0['save_s']:.1f} s)")
+    for s in range(steps):
         rs = [rk["rows"][s] for rk in ranks]
         coll = "; ".join(
             f"{k} {c} calls {t * 1e3:.1f} ms {b / 1e6:.1f} MB"
@@ -3581,78 +3635,90 @@ def _dp_full(tmp):
                 for r, x in enumerate(rs)) + f"; rank 0's collectives: "
             + coll)
         require(all(math.isfinite(x["loss"]) and math.isfinite(
-            x["grad_norm"]) for x in rs), f"{DP_ARCH}: step {s} not finite")
+            x["grad_norm"]) for x in rs), f"{arch}: step {s} not finite")
         require(all(x["loss"] == rs[0]["loss"] for x in rs),
-                f"{DP_ARCH}: step {s}'s loss differs across ranks")
+                f"{arch}: step {s}'s loss differs across ranks")
         require(all(x["replicated_sums"] == rs[0]["replicated_sums"]
-                    for x in rs), f"{DP_ARCH}: a replicated leaf differs "
+                    for x in rs), f"{arch}: a replicated leaf differs "
                 f"across ranks after step {s}")
     for r, rk in enumerate(ranks):
         still = [i for i, m in enumerate(rk["moved"]) if not m]
-        require(not still, f"{DP_ARCH}: rank {r}'s leaves {still} did "
-                f"not move")
+        require(not still, f"{arch}: rank {r}'s leaves {still} did not "
+                f"move")
     # the two-rank save, restored whole at one rank: each leaf's blocks
-    # carry the bits each rank held
+    # (along the dimensions the layout splits) carry each rank's bits
     cfg = dataclasses.replace(full, n_layers=r0["n_layers"])
     like = map_schema(model_schema(cfg),
                       lambda shp, sc, ps: torch.empty(0, device=DEVICE))
     t1 = time.perf_counter()
-    back = restore_checkpoint(str(tmp / "ckpt"), DP_STEPS, {"params": like})
+    back = restore_checkpoint(str(tmp / f"{kind}_ckpt"), steps,
+                              {"params": like})
     restore_s = time.perf_counter() - t1
     for i, t in enumerate(tree_leaves(back["params"])):
-        # an expert leaf (G, E, ...) is split over the ranks on axis 1
-        split = "data" in r0["specs"][i]
         for r, rk in enumerate(ranks):
-            p = torch.chunk(t, DP_RANKS, dim=1)[r] if split else t
+            p = t
+            for dim in r0["split_dims"][i]:
+                p = torch.chunk(p, DP_RANKS, dim=dim)[r]
             require(_bits_sums(p.contiguous()) == rk["blocks"][i],
-                    f"{DP_ARCH}: the one-rank restore of leaf {i} differs "
+                    f"{arch}: the one-rank restore of leaf {i} differs "
                     f"from rank {r}'s block")
     del back
     _lm_free()
-    log(f"  the two-rank save ({sum(rk['save_s'] for rk in ranks[:1]):.1f} "
-        f"s) restored at one rank in {restore_s:.1f} s: every block equal "
-        f"to its rank's bits; every loss and grad norm finite and equal on "
-        f"the ranks, every leaf moved on its owner, the replicated leaves "
-        f"equal bit for bit across the ranks after each step")
+    log(f"  the two-rank save restored at one rank in {restore_s:.1f} s: "
+        f"every block equal to its rank's bits; every loss and grad norm "
+        f"finite and equal on the ranks, every leaf moved on its rank, the "
+        f"leaves no rank splits equal bit for bit across the ranks after "
+        f"each step")
     later = [max(rk["rows"][s]["wall_ms"] for rk in ranks)
-             for s in range(1, DP_STEPS)]
+             for s in range(1, steps)]
     coll_s = [sum(t for _, t, _ in ranks[0]["rows"][s]["collectives"]
-                  .values()) for s in range(1, DP_STEPS)]
+                  .values()) for s in range(1, steps)]
     return {"ranks": ranks, "step_ms": statistics.median(later),
             "collective_ms": statistics.median(coll_s) * 1e3, "wall": wall}
 
 
-def _dp_card_vs_cpu(tmp):
-    """``DP_CARD_ARCHS`` reduced, each of ``DP_MODES``: two gloo ranks on
-    the card against two on the CPU (launched together)."""
+def _card_vs_cpu(tmp, runs, what):
+    """``_card_rank``'s runs, each (shape, modes, cases), on gloo ranks on
+    the card against the same on the CPU, every launch started together:
+    the loss within ``DP_LOSS_ATOL``, every gradient leaf within
+    ``DP_GRAD_FRAC`` of the CPU leaf's RMS (float32 sums in another
+    order), and under int8 also two quanta (a rank's rounding of an
+    entry near a half step may go the other way): 2 max|cpu| / 127."""
+    import math
     import numpy as np
-    procs = [_dp_launch(DP_RANKS, ["card", str(tmp), dev])
-             for dev in ("cuda", "cpu")]
-    for (p, t0), dev in zip(procs, ("card", "CPU")):
-        _dp_wait(p, t0, f"reduced configurations on {DP_RANKS} gloo ranks "
-                 f"on the {dev}")
-    card, cpu = (np.load(tmp / f"{d}.npz") for d in ("cuda", "cpu"))
+    procs = []
+    for shape, modes, cases in runs:
+        n = math.prod(int(x) for x in shape.split(","))
+        for dev in ("cuda", "cpu"):
+            procs.append((_dp_launch(n, ["card", str(tmp), dev, shape, modes,
+                                         *cases]), f"{shape} on {dev}"))
+    for (p, t0), label in procs:
+        _dp_wait(p, t0, f"reduced configurations at ({label})")
     worst = {}
-    for key in cpu.files:
-        arch, sync, m, comp, what = key.split("|")
-        w, g = cpu[key], card[key]
-        mode = f"{arch} {sync} m={m}" + (f" {comp}" if comp != "None"
-                                         else "")
-        if what == "loss":
-            err, limit = abs(float(g) - float(w)), DP_LOSS_ATOL
-        else:
-            rms = float(np.sqrt(np.mean(w * w)))
-            err = float(np.max(np.abs(g - w)))
-            limit = DP_GRAD_FRAC * rms + (2 * float(np.abs(w).max()) / 127
-                                          if comp == "int8" else 0.0)
-        require(err <= limit, f"{mode}: card != CPU in {what}: {err} over "
-                f"{limit}")
-        if what != "loss":
-            worst[mode] = max(worst.get(mode, 0.0), err / max(rms, 1e-30))
-    log(f"  reduced configurations, {DP_RANKS} gloo ranks on the card "
-        f"against {DP_RANKS} on the CPU, float32 twins, synced gradients "
-        f"(worst |error| / RMS): " + "; ".join(
-            f"{k} {v:.2e}" for k, v in worst.items()))
+    for shape, _, _ in runs:
+        tag = shape.replace(",", "_")
+        card, cpu = (np.load(tmp / f"{d}_{tag}.npz") for d in ("cuda", "cpu"))
+        for key in cpu.files:
+            case, sync, m, comp, leaf = key.split("|")
+            w, g = cpu[key], card[key]
+            mode = (f"{case} at ({shape.replace(',', ', ')}) {sync} m={m}"
+                    + (f" {comp}" if comp != "None" else ""))
+            if leaf == "loss":
+                err, limit = abs(float(g) - float(w)), DP_LOSS_ATOL
+            else:
+                rms = float(np.sqrt(np.mean(w * w)))
+                err = float(np.max(np.abs(g - w)))
+                limit = DP_GRAD_FRAC * rms + (
+                    2 * float(np.abs(w).max()) / 127 if comp == "int8"
+                    else 0.0)
+            require(err <= limit, f"{mode}: card != CPU in {leaf}: {err} "
+                    f"over {limit}")
+            if leaf != "loss":
+                worst[mode] = max(worst.get(mode, 0.0),
+                                  err / max(rms, 1e-30))
+    log(f"  {what}, gloo ranks on the card against the same on the CPU, "
+        f"float32 twins, loss and every synced gradient (worst |error| / "
+        f"RMS): " + "; ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     return worst
 
 
@@ -3749,8 +3815,9 @@ def phase_dp():
         f"free; {disk.free / 1e9:.1f} GB free on the disk of {tmp}")
     reset_launch_counts()
     try:
-        card = _dp_card_vs_cpu(tmp)
-        full = _dp_full(tmp)
+        card = _card_vs_cpu(tmp, [(f"{DP_RANKS},1", "all", DP_CARD_ARCHS)],
+                            "reduced configurations over the data axis")
+        full = _full_run(tmp, "dp")
         nccl = _dp_nccl(tmp)
         examples = _dp_examples()
     finally:
@@ -3764,6 +3831,393 @@ def phase_dp():
         f"TPU kernel); phase 3j wall time {wall:.1f} s")
     return {"full": full, "card_vs_cpu": card, "nccl": nccl,
             "examples": examples, "wall": wall}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3k: tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "yi-6b"
+TP_RANKS = DP_RANKS
+TP_BATCH, TP_SEQ, TP_STEPS = 8, 64, 4
+# each rank's bf16 blocks and gradients and float32 m, v and master (16
+# bytes a parameter; the leaves the specs do not split over "model" whole
+# on each rank) must fit, for both ranks, in DP_BYTES of the card
+# jamba-v0.1-52b at published width, one group of its pattern (8 of 32
+# layers): batch, prompt fed step by step, decode steps from init_cache
+TP_DECODE_ARCH = "jamba-v0.1-52b"
+TP_DECODE = (4, 8, 32)
+# the decode's dtypes: the bf16 model, then its float32 draw
+TP_DECODE_DTYPES = (("bf16", "bfloat16"), ("float32", "float32"))
+# the model ranks' decode logits against one rank's: the float32 draw
+# within this share of the one-rank logits' RMS (torch_lm_helpers.
+# FRAC["logits"], the CPU tests' decode bound), the tokens equal up to
+# the first near-tie
+TP_DECODE_FRAC = 0.1
+# the bf16 model: bf16 rounding of the row-split partials (each rank's
+# product rounded, then their sum) drifts from one rank's single rounding
+# through the layers, as phase 3h's decode against forward does at depth
+# (the rows whose routing held read 0.076-0.125 of the RMS at published
+# width on an H100; the reduced jamba on the CPU 0.046, a bf16 ulp of its
+# largest logit being ~0.023 of its RMS)
+TP_DECODE_BF16_FRAC = 0.4
+# a row's routing may leave one rank's only at a router near-tie: the
+# one-rank gap between its k-th and (k+1)-th expert probability within
+# this (at published width on an H100 all four rows moved, at gaps of
+# 1.6e-4 to 8.8e-4; the reduced jamba on the CPU one row at 0.0)
+TP_ROUTER_TIE = 0.05
+# card against CPU: the reduced configurations, float32 twins, at (1, 2)
+# (and yi-6b with attn_shard="head_dim"), and the MoE ones at (2, 2)
+TP_CARD_CASES = ("yi-6b", "yi-6b:head_dim", "gemma3-4b", "gemma3-12b",
+                 "minicpm-2b", "pixtral-12b", "falcon-mamba-7b",
+                 "jamba-v0.1-52b", "deepseek-v2-lite-16b",
+                 "deepseek-v2-236b", "whisper-medium")
+TP_CARD_EP = ("deepseek-v2-lite-16b", "jamba-v0.1-52b")
+
+
+def _tp_cut(cfg):
+    """The most layers of ``cfg`` whose ``TP_RANKS`` ranks' blocks fit in
+    ``DP_BYTES`` at 16 bytes a parameter: a leaf split over "model" counts
+    1 / ``TP_RANKS`` of it on each rank, any other leaf whole. Returns
+    (the cut config, the two ranks' bytes)."""
+    import dataclasses
+    import math
+    from repro_torch.launch.mesh import spec_axes
+    from repro_torch.models.lm import map_schema, model_schema
+    from repro_torch.pytree import tree_leaves
+
+    def rank_bytes(n):
+        c = dataclasses.replace(cfg, n_layers=n)
+        sizes = tree_leaves(map_schema(model_schema(c), lambda shp, sc, ps: (
+            math.prod(shp) // (TP_RANKS if "model" in spec_axes(ps)
+                               else 1))))
+        return 16 * sum(sizes)
+
+    n = 1
+    while n < cfg.n_layers and TP_RANKS * rank_bytes(n + 1) <= DP_BYTES:
+        n += 1
+    return dataclasses.replace(cfg, n_layers=n), TP_RANKS * rank_bytes(n)
+
+
+def _tp_case(case):
+    """A case ``ARCH`` or ``ARCH:MODE`` as its reduced config."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    arch, _, mode = case.partition(":")
+    cfg = reduced(get_config(arch))
+    return dataclasses.replace(cfg, attn_shard=mode) if mode else cfg
+
+
+def _tp_decode_run(api, params, cache, layout=None):
+    """``TP_DECODE``'s protocol through ``make_serve_step(api, layout)``:
+    the prompt (seed 5) fed step by step, then greedy steps. Returns a
+    dict: the logits of every step on the host, the tokens fed, each
+    step's ms by CUDA events after the first, and each step's routing at
+    every MoE layer (each token's top-k experts, sorted, (steps, layers,
+    B, k)) with the router's gap between its k-th and (k+1)-th
+    probability ((steps, layers, B))."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.train.train_step import make_serve_step
+    B, P, steps = TP_DECODE
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(
+        0, api.cfg.vocab, (B, P)), device=DEVICE)
+    logits, fed, events, routes = [], [], [], []
+
+    def recording(*a, **kw):
+        lg, c = api.decode_step(*a, **kw)
+        logits.append(lg.to("cpu", copy=True))
+        return lg, c
+
+    router = moe._router
+
+    def routed(x, w_router, top_k):
+        out = router(x, w_router, top_k)
+        top = torch.sort(torch.softmax((x @ w_router).float(), dim=-1),
+                         dim=-1, descending=True).values
+        routes.append((out[0].sort(dim=-1).values,
+                       top[:, top_k - 1] - top[:, top_k]))
+        return out
+
+    step = make_serve_step(dataclasses.replace(api, decode_step=recording),
+                           layout)
+    tok = prompt[:, :1]
+    moe._router = routed
+    try:
+        for pos in range(steps):
+            fed.append(tok[:, 0].cpu())
+            nxt, cache = step(params, cache, tok, pos)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            tok = prompt[:, pos + 1:pos + 2] if pos + 1 < P else nxt
+        torch.cuda.synchronize()
+    finally:
+        moe._router = router
+    n = len(routes) // steps
+    return {"logits": torch.stack(logits), "fed": torch.stack(fed),
+            "ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+            "ids": torch.stack([r[0] for r in routes]).cpu().reshape(
+                steps, n, B, -1),
+            "gap": torch.stack([r[1] for r in routes]).cpu().reshape(
+                steps, n, B)}
+
+
+def _tp_decode_model(layout, device, dtype):
+    """``TP_DECODE_ARCH`` cut as phase 3h cuts it, seeded in ``dtype``
+    (each leaf drawn whole and cut to this rank's block under
+    ``layout``, so every layout holds the same weights), and its empty
+    decode cache under ``layout`` (the sequence over the model ranks)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build, lm
+    cfg = _lm_cut(get_config(TP_DECODE_ARCH))
+    dtype = getattr(torch, dtype)
+    params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(
+        0), dtype=dtype, layout=layout)
+    B, _, steps = TP_DECODE
+    cache = lm.init_cache(cfg, B, steps, dtype=dtype, device=device,
+                          layout=layout)
+    return build(cfg), params, cache
+
+
+def _tp_rank_decode(out):
+    """One of ``TP_RANKS`` gloo ranks on the card: ``TP_DECODE``'s steps
+    of ``TP_DECODE_ARCH`` at (1, ``TP_RANKS``) in bf16, then on its
+    float32 draw. Rank 0 writes ``OUT/tp_decode.pt``."""
+    import torch
+    from repro_torch.launch import mesh
+    from repro_torch.models.lm import param_bytes
+    device = mesh.init_group("gloo")
+    torch.cuda.set_per_process_memory_fraction(DP_MEM_FRACTION, device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, size = mesh.world()
+    layout = mesh.make_host_mesh(1, size)
+    res = {}
+    for name, dtype in TP_DECODE_DTYPES:
+        api, params, cache = _tp_decode_model(layout, device, dtype)
+        with _CollectiveLog() as coll:
+            res[name] = _tp_decode_run(api, params, cache, layout)
+            res[name]["collectives"] = coll.take()
+        res[name]["param_bytes"] = param_bytes(params)
+        del params, cache
+        _lm_free()
+    if rank == 0:
+        torch.save(res, Path(out) / "tp_decode.pt")
+    mesh.destroy_group()
+
+
+def _tp_compare(name, tp, one, frac):
+    """One dtype's decode on the model ranks against one rank, row by row
+    (the rows of a decode batch are independent: at batch 4 and top-2 no
+    expert reaches its capacity of 8). A row is compared while its
+    routing (its top-k experts at every MoE layer) and its fed tokens
+    equal one rank's: its logits within ``frac`` of the one-rank logits'
+    RMS, its argmax equal unless the one-rank top two are within twice
+    that (a near-tie; the row then leaves, its next token may differ).
+    A row whose routing differs leaves too, and only at a router
+    near-tie: the one-rank gap between the k-th and (k+1)-th expert
+    probability at the layer that moved within ``TP_ROUTER_TIE`` (bf16
+    drift moves such a tie, and the expert outputs then differ whole, as
+    the bf16 MoE gradients do, ROADMAP C). Returns (the worst |error| /
+    RMS, the steps each row was compared, each step's worst, the rows'
+    (step, router gap) where their routing left)."""
+    import torch
+    _, P, steps = TP_DECODE
+    lg, lw = tp["logits"], one["logits"]
+    B = lg.shape[1]
+    left, done = {}, {}
+    errs = []
+    for t in range(steps):
+        for b in range(B):
+            if b in left or b in done:
+                continue
+            if not torch.equal(tp["ids"][t, :, b], one["ids"][t, :, b]):
+                moved = (tp["ids"][t, :, b] != one["ids"][t, :, b]).any(-1)
+                left[b] = (t, float(one["gap"][t, :, b][moved].min()))
+                require(left[b][1] <= TP_ROUTER_TIE, f"{TP_DECODE_ARCH} "
+                        f"{name}: row {b}'s routing moved at step {t} with "
+                        f"the router's top-k gap {left[b][1]}")
+        keep = [b for b in range(B) if b not in left and b not in done]
+        for b in keep:
+            require(int(tp["fed"][t, b]) == int(one["fed"][t, b]),
+                    f"{TP_DECODE_ARCH} {name}: row {b} was fed another "
+                    f"token at step {t}")
+        rms = float(lw[t].pow(2).mean().sqrt())
+        err = max((float((lg[t, b] - lw[t, b]).abs().max()) for b in keep),
+                  default=0.0) / rms
+        errs.append(err)
+        require(err <= frac, f"{TP_DECODE_ARCH} {name}: step {t}'s logits "
+                f"{err:.4f} of the RMS from the one-rank decode's, over "
+                f"{frac}")
+        for b in keep:
+            if t + 1 >= P and int(lg[t, b].argmax()) != int(lw[t, b].argmax()):
+                top = lw[t, b].sort().values
+                require(float(top[-1] - top[-2]) <= 2 * frac * rms,
+                        f"{TP_DECODE_ARCH} {name}: step {t}'s token of row "
+                        f"{b} differs with no near-tie")
+                done[b] = t
+    compared = [min(left.get(b, (steps,))[0], done.get(b, steps - 1) + 1)
+                for b in range(B)]
+    return max(errs), compared, errs, left
+
+
+def _tp_decode(tmp):
+    """``TP_DECODE_ARCH``'s one-rank decode on the card (bf16, then its
+    float32 draw; each freed before the next), then the same weights on
+    ``TP_RANKS`` gloo ranks at (1, ``TP_RANKS``) through sequence-split
+    caches (``_tp_compare``: bf16 within ``TP_DECODE_BF16_FRAC``, the
+    float32 draw within ``TP_DECODE_FRAC``)."""
+    import statistics as st
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.pytree import tree_leaves
+    B, P, steps = TP_DECODE
+    one = {}
+    t0 = time.perf_counter()
+    for name, dtype in TP_DECODE_DTYPES:
+        api, params, cache = _tp_decode_model(None, DEVICE, dtype)
+        one[name] = _tp_decode_run(api, params, cache)
+        ids = one[name]["ids"]
+        routed = sum(int(ids[t, i].unique().numel()) for t in
+                     range(ids.shape[0]) for i in range(ids.shape[1]))
+        one[name]["bound"] = _lm_bound_ms(params, cache,
+                                          routed / max(ids.shape[0], 1))
+        one[name]["n_params"] = sum(t.numel() for t in tree_leaves(params))
+        del params, cache
+        _lm_free()
+    one_s = time.perf_counter() - t0
+    proc, t1 = _dp_launch(TP_RANKS, ["tp_decode", str(tmp)])
+    _, wall = _dp_wait(proc, t1, f"{TP_DECODE_ARCH} decode on {TP_RANKS} "
+                       f"model ranks")
+    tp = torch.load(tmp / "tp_decode.pt")
+    out = {}
+    for name, _ in TP_DECODE_DTYPES:
+        frac = TP_DECODE_BF16_FRAC if name == "bf16" else TP_DECODE_FRAC
+        worst, compared, errs, left = _tp_compare(name, tp[name], one[name],
+                                                  frac)
+        coll = "; ".join(f"{k} {c} calls {s * 1e3:.1f} ms {b / 1e6:.2f} MB"
+                         for k, (c, s, b) in tp[name]["collectives"].items())
+        o, r = one[name], tp[name]
+        log(f"  {TP_DECODE_ARCH} {name} at published width, "
+            f"{api.cfg.n_layers} of {get_config(TP_DECODE_ARCH).n_layers} "
+            f"layers ({o['n_params'] / 1e9:.2f} B parameters, "
+            f"{r['param_bytes'] / 1e9:.2f} GB a model rank), batch {B}, "
+            f"{P}-token prompt, {steps} steps from init_cache: one rank "
+            f"{st.median(o['ms']):.2f} ms a step (median after the "
+            f"first), {TP_RANKS} model ranks {st.median(r['ms']):.2f} ms "
+            f"(rank 0's events), weight-bytes bound {o['bound']:.2f} ms "
+            f"(one card, the one-rank weights and cache, the experts the "
+            f"one-rank steps routed to); logits within {worst:.3e} of the "
+            f"one-rank RMS, the rows compared over {compared} steps "
+            f"(limit {frac}; each step: "
+            + ", ".join(f"{e:.2e}" for e in errs) + f"); rows whose "
+            f"routing left the one-rank routing (step, the one-rank router "
+            f"gap there): {left or 'none'}; rank 0's "
+            f"collectives over the steps: {coll}")
+        out[name] = {"one_ms": st.median(o["ms"]),
+                     "tp_ms": st.median(r["ms"]), "bound_ms": o["bound"],
+                     "worst": worst, "compared": compared, "left": left}
+    log(f"  one-rank decodes {one_s:.1f} s with the draws; the model ranks' "
+        f"launch {wall:.1f} s")
+    out["wall"] = wall
+    return out
+
+
+def _tp_trainer_start(tmp):
+    """Start ``python -m torch.distributed.run ... repro_torch.launch.train
+    --model-axis 2`` on 2 gloo ranks sharing the card (reduced, little
+    memory: it runs beside the other parts); ``_tp_trainer_finish`` waits
+    for it and resumes its checkpoint at model axis 1."""
+    args = ["repro_torch.launch.train", "--arch", RESUME_ARCH, "--batch",
+            "4", "--seq", "32", "--ckpt-every", "6", "--lr", "5e-3",
+            "--backend", "gloo", "--ckpt-dir", str(tmp / "tp_train"),
+            "--steps", str(RESUME_STEPS[0]), "--model-axis", str(TP_RANKS)]
+    return _dp_launch(TP_RANKS, args, module=True)
+
+
+def _tp_trainer_finish(tmp, started):
+    """The trainer's launch checked, then ``launch.train.train`` resumed at
+    ``model_axis=1`` in this process (the one-rank layout the CLI's
+    ``--model-axis 1`` gives)."""
+    import math
+    from repro_torch.launch.train import train
+    proc, t0 = started
+    out, w1 = _dp_wait(proc, t0, f"launch.train --model-axis {TP_RANKS}")
+    first = json.loads([ln for ln in out.splitlines()
+                        if ln.startswith("{")][-1])
+    t1 = time.perf_counter()
+    resumed = train(RESUME_ARCH, steps=RESUME_STEPS[1], use_reduced=True,
+                    ckpt_dir=str(tmp / "tp_train"), batch=4, seq=32,
+                    ckpt_every=6, lr=5e-3, model_axis=1, log_every=100,
+                    device=DEVICE)
+    w2 = time.perf_counter() - t1
+    log(f"  launch.train({RESUME_ARCH!r}) --model-axis {TP_RANKS} on "
+        f"{TP_RANKS} gloo ranks: loss {first['first_loss']:.4f} -> "
+        f"{first['last_loss']:.4f} over {first['steps_run']} steps "
+        f"({w1:.1f} s with the launcher, beside the other parts); resumed "
+        f"at model_axis 1 to {RESUME_STEPS[1]}: {len(resumed)} steps "
+        f"({w2:.1f} s)")
+    require(first["steps_run"] == RESUME_STEPS[0] and first["ranks"] ==
+            TP_RANKS and first["last_loss"] < first["first_loss"],
+            f"launch.train --model-axis {TP_RANKS}: {first}")
+    require(len(resumed) == RESUME_STEPS[1] - RESUME_STEPS[0] and all(
+        math.isfinite(x) for x in resumed), f"launch.train resumed at "
+            f"model_axis 1 ran {resumed}")
+    return first, resumed
+
+
+def phase_tp():
+    """Tensor parallelism over the model axis (plain PyTorch and
+    torch.distributed: the LM stack has no TPU kernel): ``TP_ARCH``
+    training at published width on two model ranks sharing the card,
+    ``TP_DECODE_ARCH``'s decode on two model ranks against one, the
+    reduced configurations card against CPU, and ``launch.train
+    --model-axis 2`` with its resume at one rank."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    _lm_free()
+    free, total = torch.cuda.mem_get_info()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    log(f"  card: {card_line()}; {free / 1e9:.1f} of {total / 1e9:.1f} GB "
+        f"free; {shutil.disk_usage(tmp).free / 1e9:.1f} GB free on the disk "
+        f"of {tmp}")
+    reset_launch_counts()
+    parts = {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn(tmp)
+        parts[name] = time.perf_counter() - t1
+        return out
+
+    try:
+        started = _tp_trainer_start(tmp)
+        card = timed("card against CPU", lambda d: _card_vs_cpu(
+            d, [(f"1,{TP_RANKS}", "plain", TP_CARD_CASES),
+                ("2,2", "plain", TP_CARD_EP)],
+            "reduced configurations over the model axis"))
+        full = timed(f"{TP_ARCH} training", lambda d: _full_run(d, "tp"))
+        decode = timed(f"{TP_DECODE_ARCH} decode", _tp_decode)
+        trainer = timed("launch.train's wait and resume",
+                        lambda d: _tp_trainer_finish(d, started))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lc = launch_counts()
+    wall = time.perf_counter() - t0
+    log("  3k parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                   parts.items()))
+    log(f"  {TP_ARCH}: median step after the first {full['step_ms']:.1f} ms "
+        f"(the slower rank, host clock), of it rank 0's collectives "
+        f"{full['collective_ms']:.1f} ms host; launches of the port's CUDA "
+        f"kernels in this process {sum(lc.values())} (the LM stack has no "
+        f"TPU kernel); phase 3k wall time {wall:.1f} s")
+    return {"full": full, "decode": decode, "card_vs_cpu": card,
+            "trainer": trainer, "wall": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -4395,7 +4849,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
     if args.dp_rank:
-        # one rank of phase 3j, started by the phase itself
+        # one rank of phase 3j or 3k, started by the phase itself
         return _dp_rank_main(args.dp_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4451,6 +4905,12 @@ def main(argv=None) -> int:
         f"against CPU, one nccl rank, the example twins "
         f"({time.perf_counter() - t0:.1f} s)")
     phase_dp()
+    log(f"phase 3k: tensor parallelism over the model axis, {TP_ARCH} "
+        f"training at published width and {TP_DECODE_ARCH} decode on "
+        f"{TP_RANKS} model ranks, the reduced configurations card against "
+        f"CPU, launch.train --model-axis {TP_RANKS} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    phase_tp()
     if args.stop_after < 4:
         return 0
     log(f"phase 4: kernel timing at the paths' shapes "

@@ -21,7 +21,9 @@ It follows the reference package's layer map, one directory per layer:
   launch/    single-host serving: ``SearchEngine`` and ``stream_search``,
              the background ``Learner`` publishing versioned snapshots
              (``core.snapshot``), and the load-shape scenarios; the
-             multi-device jobs; ``serve``, the LM / Whisper decode loop
+             multi-device jobs; ``serve``, the LM / Whisper decode loop;
+             the rank layout and its tensor-parallel collectives
+             (``mesh``), the decode caches' partition specs (``shapes``)
   models/    the LM zoo: ``config`` (``ModelConfig``), ``layers``
              (norms, interleaved RoPE, chunked GQA attention, the chunked
              cross-entropy), ``flash`` (attention with a hand-written

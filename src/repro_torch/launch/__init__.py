@@ -17,7 +17,11 @@
                   device, the gathers the jobs use; ``Layout``, the rank
                   layout over named axes with a subgroup per slice, and
                   placement by partition spec (``local_slice``,
-                  ``gather_leaf``)
+                  ``gather_leaf``, ``local_shape``); the tensor-parallel
+                  boundaries ``copy_to`` / ``reduce_from`` /
+                  ``gather_from`` (autograd functions over a group)
+  shapes.py       ``SHAPES``, ``cell_supported``, ``cache_pspecs``: the
+                  assigned shapes and the decode caches' partition specs
   shard_index.py  the sharded corpus index: ``shard_corpus_state``,
                   ``local_topk``, ``merge_topk``, ``ShardedSearch``
                   (distributed path over a group, host loop otherwise)
@@ -30,10 +34,10 @@
                   ``generate``, ``python -m repro_torch.launch.serve``)
   train.py        the LM / Whisper trainer: checkpoints, elastic resume,
                   straggler log, data-parallel over ``--data-axis`` ranks
+                  and tensor-parallel over ``--model-axis`` ranks
                   (``train``, ``python -m repro_torch.launch.train``)
 
 The jobs run under ``python -m torch.distributed.run`` (``--backend
 nccl|gloo``) or as one rank without it. The XLA compile probes
-(``dryrun`` and its shape helpers) and tensor parallelism over the model
-axis are not here yet.
+(``dryrun``, ``shapes.input_specs`` / ``Cell``) are not here yet.
 """

@@ -29,6 +29,15 @@ parameters and batch rows by it. gloo takes CUDA tensors in every
 collective the trainer calls (``tools/gloo_cuda_probe.py``: torch 2.11
 on an H100), so they are passed as they are, on either backend.
 
+Tensor parallelism (the model axis, Megatron's scheme) crosses its
+region boundaries through three autograd functions over the axis's
+group: ``copy_to`` (identity forward, gradient all-reduced), where a
+replicated activation enters a split product; ``reduce_from``
+(all-reduce forward, identity backward), which closes a row-split
+product; ``gather_from`` (all-gather forward, the rank's slice
+backward). Each is the identity, with no collective, for a group of
+one.
+
   python -m torch.distributed.run --standalone --nproc_per_node 2 \\
       -m -- repro_torch.launch.gram --backend gloo --out /tmp/gram
 """
@@ -298,6 +307,72 @@ def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
+# ------------------------------------------- tensor-parallel collectives
+# Megatron's three region boundaries as autograd functions over a group
+# (the model axis's). Each is the identity, with no autograd node, for a
+# group of one (None).
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, all-reduce backward: where a replicated
+    activation enters a split region, the ranks' partial gradients are
+    summed."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce forward (in the input's dtype), identity backward: a
+    row-split product's partial sums closed into the replicated
+    activation."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather along ``dim`` forward, this rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        ctx.index = dist.get_rank(group)
+        return all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, gradient summed over ``group`` backward."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` forward, gradient passed backward."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` forward, this rank's
+    slice of the gradient backward."""
+    return x if group is None else _GatherFrom.apply(x, group, dim)
+
+
 # -------------------------------------------------- placement by pspec
 # A partition spec is a tuple with one entry per dimension: an axis name,
 # a tuple of names, or None (the reference's PartitionSpec as a tuple).
@@ -326,6 +401,19 @@ def sharded_dims(spec, layout: Optional[Layout]):
         if names and layout.size(names) > 1:
             out.append((dim, names))
     return out
+
+
+def local_shape(shape, spec, layout: Optional[Layout]) -> Tuple[int, ...]:
+    """The shape of this rank's block of a leaf of ``shape`` under
+    ``spec`` (raises where a split dimension does not divide)."""
+    shape = list(shape)
+    for dim, names in sharded_dims(spec, layout):
+        n = layout.size(names)
+        if shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(shape)} does not "
+                             f"split over {n} ranks of {names}")
+        shape[dim] //= n
+    return tuple(shape)
 
 
 def local_slice(t: torch.Tensor, spec, layout: Optional[Layout]):

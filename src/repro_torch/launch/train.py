@@ -17,8 +17,11 @@ gloo|nccl``, ``launch.mesh.init_group``): every rank draws the global
 batch of each step and computes on its rows, the step is data-parallel
 (``train_step.make_train_step``, the gradients synced per microbatch), the
 MoE layers run expert-parallel, and rank 0 alone logs and writes
-checkpoints. ``model_axis`` > 1 (tensor
-parallelism) raises: ROADMAP A4c-model.
+checkpoints. With ``model_axis`` M > 1 the model is split over M ranks
+(tensor parallelism: each rank holds its block of every leaf the specs
+split over "model"), D x M ranks in all; a model axis that does not
+split some leaf raises ``ValueError`` naming it. A checkpoint holds
+whole leaves, so a run resumes at any D x M.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
       --steps 4 --device cpu
@@ -26,11 +29,15 @@ parallelism) raises: ROADMAP A4c-model.
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc_per_node 2 -m -- repro_torch.launch.train --arch minicpm-2b \\
       --steps 4 --data-axis 2 --backend gloo --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc_per_node 2 -m -- repro_torch.launch.train --arch minicpm-2b \\
+      --steps 4 --model-axis 2 --backend gloo --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import tempfile
 import time
@@ -41,7 +48,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.engine import resolve_device
 from repro_torch.launch import mesh
-from repro_torch.models import build
+from repro_torch.models import build, lm, whisper
 from repro_torch.train.checkpoint import (CheckpointManager,
                                           restore_checkpoint)
 from repro_torch.train.data import TokenPipeline
@@ -59,6 +66,37 @@ def to_device(batch, device):
             for k, v in batch.items()}
 
 
+def _schema_leaves(schema, prefix=""):
+    """(path, shape, spec) of every leaf of a parameter schema."""
+    for k, v in schema.items():
+        if isinstance(v, list):
+            for i, g in enumerate(v):
+                yield from _schema_leaves(g, f"{prefix}{k}[{i}].")
+        else:
+            yield f"{prefix}{k}", v[0], v[2]
+
+
+def check_split(cfg, sizes) -> None:
+    """Raise ``ValueError`` naming the first parameter leaf whose split
+    dimension the ranks of ``sizes`` ({axis: ranks}) do not divide (and,
+    with ``attn_shard="head_dim"``, a block of head_dim that cuts a RoPE
+    pair)."""
+    schema = (whisper.whisper_schema(cfg) if cfg.family == "audio"
+              else lm.model_schema(cfg))
+    for path, shape, spec in _schema_leaves(schema):
+        for dim, entry in enumerate(spec):
+            names = (entry,) if isinstance(entry, str) else entry or ()
+            n = math.prod(sizes.get(a, 1) for a in names)
+            if n > 1 and shape[dim] % n:
+                raise ValueError(
+                    f"leaf {path} of shape {tuple(shape)}: dimension {dim} "
+                    f"does not split over the {n} ranks of {tuple(names)}")
+    m = sizes.get("model", 1)
+    if cfg.attn_shard == "head_dim" and m > 1 and (cfg.head_dim // m) % 2:
+        raise ValueError(f"head_dim {cfg.head_dim} over {m} model ranks "
+                         f"cuts a RoPE pair")
+
+
 def train(arch: str, steps: int = 20, use_reduced: bool = True,
           ckpt_dir: str = DEFAULT_CKPT_DIR, batch: int = 8, seq: int = 64,
           ckpt_every: int = 5, microbatch: int = 1, data_axis: int = 1,
@@ -71,10 +109,10 @@ def train(arch: str, steps: int = 20, use_reduced: bool = True,
     group's ranks laid out ``data_axis`` x ``model_axis``. Returns the
     losses of the steps this call ran (the mean over the data ranks, the
     same on every rank)."""
-    if model_axis != 1:
-        raise NotImplementedError(
-            "model_axis > 1 shards the model over ranks (tensor "
-            "parallelism): ROADMAP A4c-model")
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg)
+    check_split(cfg, {"data": data_axis, "model": model_axis})
     if mesh.world()[1] != data_axis * model_axis:
         raise ValueError(
             f"data_axis {data_axis} x model_axis {model_axis} needs as many "
@@ -83,9 +121,6 @@ def train(arch: str, steps: int = 20, use_reduced: bool = True,
     layout = mesh.make_host_mesh(data_axis, model_axis)
     lead = layout.rank == 0
     device = resolve_device(device)
-    cfg = get_config(arch)
-    if use_reduced:
-        cfg = reduced(cfg)
     api = build(cfg)
     opt = AdamW(lr=cosine_schedule(lr, max(steps // 10, 1), steps))
     step_fn = make_train_step(api, opt, microbatch=microbatch,

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import all_reduce_
+
 NEG_INF = -1.0e30
 
 
@@ -36,14 +38,21 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     return (out * scale + bias).to(x.dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         pair_offset: int = 0, half_total: Optional[int] = None):
     """Interleaved (rotate-every-two) RoPE: pairs are (2i, 2i + 1), not the
     half-split layout. Frequencies and angles in float32, the result cast
-    back to ``x``'s dtype. x: (..., S, H, hd); positions: (..., S)."""
+    back to ``x``'s dtype. x: (..., S, H, hd); positions: (..., S).
+
+    A block of head_dim (tensor parallelism over it, ``attn_shard=
+    "head_dim"``) holds pairs ``pair_offset ..`` of a head of
+    ``half_total`` pairs; interleaving keeps every pair inside one
+    block, and each pair gets the frequency of its place in the head."""
     hd = x.shape[-1]
     half = hd // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=x.device) / half
+    total = half if half_total is None else half_total
+    exps = -torch.arange(pair_offset, pair_offset + half,
+                         dtype=torch.float32, device=x.device) / total
     freqs = torch.pow(theta, exps)          # float32: theta ** exps
     ang = positions[..., :, None, None].to(torch.float32) * freqs
     cos, sin = torch.cos(ang), torch.sin(ang)
@@ -172,9 +181,28 @@ def _chunk_nll(h, emb, t, m):
     return torch.sum((lse - gold) * m)
 
 
+def _chunk_nll_split(h, emb, t, m, ctx):
+    """``_chunk_nll`` with ``emb`` this rank's rows of a vocabulary split
+    over the model ranks of ``ctx`` (rank k holds rows [k V / n, (k + 1)
+    V / n)): the row max, the sum of exponentials and the target's logit
+    each summed (the max: maxed) over the ranks. The hidden states enter
+    through ``ctx.copy``, so their gradient is summed over the ranks; the
+    embedding's stays this rank's."""
+    logits = (ctx.copy(h) @ emb.T).float()                # (B, ck, V / n)
+    mx = all_reduce_(logits.detach().amax(dim=-1), ctx.tp_group, "max")
+    se = ctx.reduce(torch.exp(logits - mx[..., None]).sum(dim=-1))
+    lse = mx + torch.log(se)
+    local = t - ctx.tp_rank * emb.shape[0]
+    inside = (local >= 0) & (local < emb.shape[0])
+    gold = torch.gather(logits, -1, local.clamp(0, emb.shape[0] - 1)[
+        ..., None])[..., 0]
+    gold = ctx.reduce(torch.where(inside, gold, torch.zeros_like(gold)))
+    return torch.sum((lse - gold) * m)
+
+
 def chunked_cross_entropy(hidden: torch.Tensor, emb: torch.Tensor,
                           targets: torch.Tensor, mask: torch.Tensor,
-                          s_chunk: int = 512) -> torch.Tensor:
+                          s_chunk: int = 512, ctx=None) -> torch.Tensor:
     """Mean next-token CE without materializing full (B, S, V) logits.
 
     hidden: (B, S, d); emb: (V, d) tied unembedding; targets / mask:
@@ -182,7 +210,9 @@ def chunked_cross_entropy(hidden: torch.Tensor, emb: torch.Tensor,
     largest divisor of S that is at most ``s_chunk``; each chunk's float32
     logits are recomputed in the backward (``rematerialize``), so autograd
     keeps none of them. Returns the float32 mean over the mask's count (at
-    least 1).
+    least 1). With ``ctx`` (an ``lm.Ctx`` whose model axis has more than
+    one rank) ``emb`` is this rank's block of the vocabulary
+    (``_chunk_nll_split``).
     """
     S = hidden.shape[1]
     ck = min(s_chunk, S)
@@ -192,7 +222,12 @@ def chunked_cross_entropy(hidden: torch.Tensor, emb: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, ck):
         m = mask[:, c0:c0 + ck]
-        tot = tot + rematerialize(_chunk_nll, hidden[:, c0:c0 + ck], emb,
-                                  targets[:, c0:c0 + ck], m)
+        if ctx is not None and ctx.tp > 1:
+            nll = rematerialize(_chunk_nll_split, hidden[:, c0:c0 + ck],
+                                emb, targets[:, c0:c0 + ck], m, ctx)
+        else:
+            nll = rematerialize(_chunk_nll, hidden[:, c0:c0 + ck], emb,
+                                targets[:, c0:c0 + ck], m)
+        tot = tot + nll
         cnt = cnt + torch.sum(m)
     return tot / torch.clamp_min(cnt, 1.0)

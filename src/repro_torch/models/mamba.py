@@ -7,11 +7,21 @@ association (``associative_scan``, the recursive odd / even scheme of
 ``jax.lax.associative_scan``; a sequential loop would round differently),
 and across chunks a loop carrying h. The (B, S, d_inner, d_state)
 discretized tensors only materialize per chunk.
+
+Over the model ranks (``tp_group``, the model axis's group) d_inner is
+split: ``in_x``, ``in_z``, the conv, ``dt_up``, ``dt_bias``, ``A_log``
+and ``D`` hold this rank's block, so the conv and the scan are local;
+``w_B``, ``w_C`` and ``dt_down`` are row-split, so their products are
+summed over the ranks and enter the split scan again through
+``copy_to``, and ``out``'s product is summed into the replicated
+output.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import copy_to, reduce_from
 
 # the scan's chunk length (decode runs at chunk 1)
 CHUNK = 16
@@ -92,7 +102,7 @@ def mamba_mixer(x: torch.Tensor, p: dict, *, d_state: int,
                 chunk: int = CHUNK,
                 h0: torch.Tensor | None = None,
                 conv0: torch.Tensor | None = None,
-                return_state: bool = False):
+                return_state: bool = False, tp_group=None):
     """x: (B, S, d) -> (B, S, d). Parameters p:
 
       in_x (d, di), in_z (d, di), conv_w (dc, di), conv_b (di,),
@@ -100,18 +110,23 @@ def mamba_mixer(x: torch.Tensor, p: dict, *, d_state: int,
       dt_bias (di,), A_log (di, ds), D (di,), out (di, d)
 
     With ``return_state`` also returns (h (B, di, ds) float32, conv state
-    (B, dc-1, di)).
+    (B, dc-1, di)), this rank's block of d_inner under ``tp_group``.
     """
     B, S, d = x.shape
     di = p["in_x"].shape[1]
+
+    def summed(t):       # a row-split product, re-entering the split scan
+        return copy_to(reduce_from(t, tp_group), tp_group)
+
+    x = copy_to(x, tp_group)
     xs = x @ p["in_x"]                       # (B, S, di)
     z = x @ p["in_z"]
     xs, conv_state = _conv1d_causal(xs, p["conv_w"], p["conv_b"], conv0)
     xs = F.silu(xs)
 
-    Bt = xs @ p["w_B"]                       # (B, S, ds)
-    Ct = xs @ p["w_C"]
-    dt = softplus((xs @ p["dt_down"]) @ p["dt_up"] + p["dt_bias"])
+    Bt = summed(xs @ p["w_B"])               # (B, S, ds)
+    Ct = summed(xs @ p["w_C"])
+    dt = softplus(summed(xs @ p["dt_down"]) @ p["dt_up"] + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())       # (di, ds)
 
     ck = chunk if S % chunk == 0 else S
@@ -131,17 +146,19 @@ def mamba_mixer(x: torch.Tensor, p: dict, *, d_state: int,
         h = hs[:, -1]
     y = torch.cat(ys, dim=1)
     y = (y + xs.float() * p["D"]).to(x.dtype)
-    out = (y * F.silu(z)) @ p["out"]
+    out = reduce_from((y * F.silu(z)) @ p["out"], tp_group)
     if return_state:
         return out, (h, conv_state)
     return out
 
 
-def mamba_decode_step(x: torch.Tensor, p: dict, state, *, d_state: int):
+def mamba_decode_step(x: torch.Tensor, p: dict, state, *, d_state: int,
+                      tp_group=None):
     """Single-token decode, the mixer at chunk 1. x: (B, 1, d);
-    state = (h (B,di,ds), conv (B,dc-1,di))."""
+    state = (h (B,di,ds), conv (B,dc-1,di)), this rank's block of d_inner
+    under ``tp_group``."""
     return mamba_mixer(x, p, d_state=d_state, chunk=1, h0=state[0],
-                       conv0=state[1], return_state=True)
+                       conv0=state[1], return_state=True, tp_group=tp_group)
 
 
 def init_mamba_state(B: int, di: int, d_state: int, d_conv: int, dtype,

@@ -15,8 +15,14 @@ an all-to-all, the rank's experts run on every rank's rows, and the
 results come back by the inverse all-to-all. The layer is recomputed in
 the backward (the reference's ``jax.checkpoint`` inside its shard_map),
 and the exchange's backward is the inverse exchange (``_Exchange``).
-The model axis is 1 here, so the reference's psum over it is the
-identity.
+Over the model ranks (``tp_group``, the model axis's group) each
+expert's ff dimension is split, so the experts' outputs are partial sums: the combine is
+linear in them, and its result is summed over the model ranks after it
+(the reference's psum over "model", ``moe.py:126``). The local path
+sums too: the reference computes it under GSPMD on the same split
+weights. The router is replicated; the tokens and the routing weights
+enter the split experts through ``copy_to``, so their gradients (and the
+replicated router's) come out whole on every model rank.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import exchange
+from repro_torch.launch.mesh import copy_to, exchange, reduce_from
 from .layers import rematerialize
 
 
@@ -115,32 +121,34 @@ def _combine(ye, ids, wts, slot, valid, cap: int, N: int, d: int):
 
 
 def _ep_run(xl, router, wg, wu, wd, *, n_experts, top_k, capacity_factor,
-            group, n_data):
+            group, n_data, tp_group=None):
     """The reference's ``run`` on this rank's tokens ``xl`` (N_loc, d) and
     its ``n_experts / n_data`` experts; returns (out, aux)."""
     N, d = xl.shape
     e_loc = n_experts // n_data
     ids, wts, aux = _router(xl, router, top_k)
     cap = capacity(capacity_factor, top_k, N, n_experts)
-    buf, slot, valid = _pack(xl, ids, n_experts, cap)
+    buf, slot, valid = _pack(copy_to(xl, tp_group), ids, n_experts, cap)
     buf = _Exchange.apply(buf.reshape(n_data, e_loc, cap, d), group)
     # axis 0 = the source rank; this rank's experts see every rank's rows
     buf = buf.transpose(0, 1).reshape(e_loc, n_data * cap, d)
     ye = _expert_ffn(buf, wg, wu, wd)
     ye = ye.reshape(e_loc, n_data, cap, d).transpose(0, 1)
     ye = _Exchange.apply(ye, group).reshape(n_experts * cap, d)
-    return _combine(ye, ids, wts, slot, valid, cap, N, d).to(xl.dtype), aux
+    out = _combine(ye, ids, copy_to(wts, tp_group), slot, valid, cap, N, d)
+    return reduce_from(out, tp_group).to(xl.dtype), aux
 
 
 def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
             capacity_factor: float, layout=None,
-            ep_axis: Optional[str] = None
+            ep_axis: Optional[str] = None, tp_group=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN. x: (B, S, d) -> (out, aux_loss (scalar)).
 
     params: router (d, E), gate / up (E, d, ff), down (E, ff, d); under
     ``ep_axis`` the expert leaves hold this rank's E / n experts and the
-    aux loss is this rank's tokens'.
+    aux loss is this rank's tokens'; under ``tp_group`` their ff dimension
+    is this rank's block.
     """
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
@@ -153,7 +161,8 @@ def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
         def run(xl, router, wg, wu, wd):
             return _ep_run(xl, router, wg, wu, wd, n_experts=n_experts,
                            top_k=top_k, capacity_factor=capacity_factor,
-                           group=layout.group(ep_axis), n_data=n_data)
+                           group=layout.group(ep_axis), n_data=n_data,
+                           tp_group=tp_group)
 
         out, aux = rematerialize(run, xf, params["router"], params["gate"],
                                  params["up"], params["down"])
@@ -161,8 +170,9 @@ def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
     N = xf.shape[0]
     ids, wts, aux = _router(xf, params["router"], top_k)
     cap = capacity(capacity_factor, top_k, N, n_experts)
-    buf, slot, valid = _pack(xf, ids, n_experts, cap)
+    buf, slot, valid = _pack(copy_to(xf, tp_group), ids, n_experts, cap)
     ye = _expert_ffn(buf, params["gate"], params["up"], params["down"])
     ye = ye.reshape(n_experts * cap, d)
-    out = _combine(ye, ids, wts, slot, valid, cap, N, d)
+    out = reduce_from(_combine(ye, ids, copy_to(wts, tp_group), slot, valid,
+                               cap, N, d), tp_group)
     return out.to(x.dtype).reshape(B, S, d), aux

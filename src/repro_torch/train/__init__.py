@@ -1,6 +1,6 @@
 """repro_torch.train — the LM / Whisper training runtime, on one device
-or data-parallel over ranks, and the in-house AdamW, which the soft
-barycenters step with too.
+or over ranks (data-parallel, the model split over the model axis), and
+the in-house AdamW, which the soft barycenters step with too.
 
   optimizer.py    ``AdamW`` (pytrees, a callable lr, float32 or bfloat16
                   moments, an optional float32 master copy, in-place
@@ -10,7 +10,7 @@ barycenters step with too.
                   float32; under a rank layout the gradients synced per
                   microbatch or once a step, optionally int8),
                   ``int8_all_reduce``, ``make_serve_step``,
-                  ``make_prefill``
+                  ``make_prefill`` (each under a rank layout too)
   checkpoint.py   ``save_checkpoint`` / ``restore_checkpoint`` /
                   ``list_checkpoints`` and the async ``CheckpointManager``
                   (the reference's layout: either package restores the

@@ -36,10 +36,19 @@ reference's SPMD step on its mesh:
   leaves' squares over their ranks, and ``AdamW.update_`` steps each
   rank's own leaves (an expert's state lives on its owner).
 
+Over the layout's model axis each rank holds its block of every leaf
+the specs split over "model" and the loss is computed by the
+tensor-parallel model (``lm.Ctx``); its gradients come out of autograd
+already complete for this rank's blocks, and a leaf replicated over the
+model ranks gets the same whole gradient on each. So the sync sums over
+the data axes only, never over "model"; the grad norm adds a split
+leaf's squares from its ranks and a replicated leaf's once.
+
 Without a layout every rank is on its own (one device).
 
 ``make_serve_step`` and ``make_prefill`` run under
-``torch.inference_mode()``.
+``torch.inference_mode()``, under a layout on this rank's blocks of the
+parameters and of the cache (``launch.shapes.cache_pspecs``).
 """
 from __future__ import annotations
 
@@ -227,23 +236,30 @@ def make_train_step(api, opt: AdamW, *, microbatch: int = 1,
     return step
 
 
-def make_serve_step(api):
+def make_serve_step(api, layout=None):
     """One greedy decode step: (params, cache, token, pos) -> (next token
-    (B, 1), cache). The argmax takes the first index among equal logits."""
+    (B, 1), cache). The argmax takes the first index among equal logits.
+    Under ``layout`` the parameters and the cache are this rank's blocks
+    (``init_params(..., layout=)``, ``init_cache(..., layout=)``), the
+    token the global batch, and every rank gets every next token."""
+    ctx = None if layout is None else Ctx(layout)
 
     def step(params, cache, token, pos):
         with torch.inference_mode():
-            logits, new_cache = api.decode_step(params, cache, token, pos)
+            logits, new_cache = api.decode_step(params, cache, token, pos,
+                                                ctx)
             return torch.argmax(logits, dim=-1)[:, None], new_cache
 
     return step
 
 
-def make_prefill(api, S_cache: int):
-    """(params, batch) -> (last hidden, cache)."""
+def make_prefill(api, S_cache: int, layout=None):
+    """(params, batch) -> (last hidden, cache); under ``layout`` the cache
+    is this rank's block (``launch.shapes.cache_pspecs``)."""
+    ctx = None if layout is None else Ctx(layout)
 
     def prefill(params, batch):
         with torch.inference_mode():
-            return api.prefill(params, batch, S_cache)
+            return api.prefill(params, batch, S_cache, ctx)
 
     return prefill

@@ -199,6 +199,13 @@ def test_int8_pod_sums_the_pods_within_the_quantization_bound(run):
 
 
 def test_model_axis_raises_naming_the_next_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="A4c-model"):
+    """A model axis that does not split a leaf raises, naming the leaf and
+    its shape (reduced minicpm-2b's vocabulary of 256 over 3 ranks); a
+    model axis that splits every leaf asks for its ranks (two gloo ranks
+    train at --model-axis 2 in tests/test_torch_lm_tp_train.py)."""
+    with pytest.raises(ValueError, match=r"leaf embed of shape \(256, 64\)"):
+        train("minicpm-2b", steps=1, model_axis=3, ckpt_dir=str(tmp_path),
+              device="cpu")
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         train("minicpm-2b", steps=1, model_axis=2, ckpt_dir=str(tmp_path),
               device="cpu")

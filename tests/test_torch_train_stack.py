@@ -294,9 +294,14 @@ def test_resume_reproduces_uninterrupted_run(tmp_path):
 
 
 def test_train_refuses_multi_rank_axes(tmp_path):
-    """The model axis waits for tensor parallelism; a data axis of 2
-    needs two ranks (tests/test_torch_lm_dp_train.py runs them)."""
-    with pytest.raises(NotImplementedError, match="A4c-model"):
+    """A model axis that does not split some leaf raises naming it (the
+    reduced whisper-medium's 2 heads over 4 ranks); a data or model axis
+    of 2 needs two ranks (tests/test_torch_lm_dp_train.py and
+    tests/test_torch_lm_tp_train.py run them)."""
+    with pytest.raises(ValueError, match=r"leaf .*wq of shape"):
+        train("whisper-medium", steps=1, ckpt_dir=str(tmp_path),
+              model_axis=4, device="cpu")
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         train("minicpm-2b", steps=1, ckpt_dir=str(tmp_path), model_axis=2,
               device="cpu")
     with pytest.raises(ValueError, match="torch.distributed.run"):

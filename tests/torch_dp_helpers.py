@@ -213,3 +213,102 @@ def check_dp_step(got, want, run, eps_band=0.0):
         atol = np.where(np.abs(grads[k]) < eps_band, 2 * LR[0], PARAM_ATOL)
         np.testing.assert_array_less(np.abs(port[k] - w), atol + 1e-30,
                                      err_msg=k)
+
+
+# ------------------------------------- the tensor-parallel (model) checks
+# the port's float32 gradients over the model ranks against the
+# reference's, a fraction of each leaf's RMS (the reference's own forced
+# (1, 2) mesh reads within 1.41e-5 of its one device, gemma3-4b)
+GRAD_FRAC_TP = 2e-5
+TP_BASE = 300
+
+
+def reference_weights(directory, archs):
+    """The reference's seed-3 weights of each reduced architecture (as
+    ``torch_train_helpers.TrainCase`` draws them) written for the ranks
+    under ``directory/ARCH``: the float32 twin at step 0, bf16 at step 1.
+    Returns {arch: the reference's bf16 parameters}."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced as jreduced
+    from repro.models import build as jbuild
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.train.checkpoint import save_checkpoint
+    out = {}
+    for arch in archs:
+        params = jbuild(jreduced(jget_config(arch))).init_params(
+            jax.random.PRNGKey(3))
+        f32 = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+        d = str(Path(directory) / arch)
+        save_checkpoint(d, 0, {"params": lm_params_from_reference(
+            f32, device="cpu")})
+        save_checkpoint(d, 1, {"params": lm_params_from_reference(
+            params, device="cpu")})
+        out[arch] = params
+    return out
+
+
+def reference_f32_grads(arch, params):
+    """The reference's one-device float32-twin loss and gradients of
+    ``train_loss`` on ``TokenPipeline(cfg, 4, 16, seed=1)``'s batch, as
+    {checkpoint path: array} with ".loss"."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced as jreduced
+    from repro.models import Ctx, build as jbuild
+    from repro.train.data import TokenPipeline as JPipeline
+    from torch_train_helpers import float32_reference
+    cfg = jreduced(jget_config(arch))
+    api = jbuild(cfg)
+    batch = {k: jnp.asarray(v) for k, v in
+             JPipeline(cfg, 4, 16, seed=1).batch_at(0).items()}
+    ctx = Ctx(None)
+    with float32_reference():
+        loss, g = jax.jit(jax.value_and_grad(
+            lambda p, b: api.train_loss(p, b, ctx)))(
+            jax.tree.map(lambda a: a.astype(jnp.float32), params), batch)
+    out = {".grads" + k: v for k, v in reference_leaves(g).items()}
+    out[".loss"] = np.asarray(loss, np.float32)
+    return out
+
+
+def tp_run(d, cases, shape="1,2", forced=False):
+    """The cases' float32 gradients on the ranks of the layout ``shape``
+    (one launch of the worker's ``tp`` job), against the reference: on
+    one device in this process meanwhile, or (``forced``) on a forced
+    mesh of that shape in a subprocess. Returns {"got": [...], "want":
+    [...], "replicated": the ranks' bit-equality flags}."""
+    archs = sorted({c.split(":")[0] for c in cases})
+    w = d / "weights"
+    params = reference_weights(w, archs)
+    n = int(np.prod([int(x) for x in shape.split(",")]))
+    procs = start_ranks(worker("tp", shape, w, d / "out", TP_BASE, *cases),
+                        n=n)
+    if forced:
+        procs.append(start_forced(["tests/torch_dp_reference.py", "grads",
+                                   shape, w, d / "ref", TP_BASE, *cases],
+                                  devices=n))
+        wait_all(procs)
+        want = [read_leaves(d / "ref", TP_BASE + i)
+                for i in range(len(cases))]
+    else:
+        one = {a: reference_f32_grads(a, params[a]) for a in archs}
+        wait_all(procs)
+        want = [one[c.split(":")[0]] for c in cases]
+    got = [read_leaves(d / "out", TP_BASE + i) for i in range(len(cases))]
+    flags = json.loads((d / "out" / f"replicated_{TP_BASE}.json"
+                        ).read_text())
+    return {"got": got, "want": want, "replicated": flags, "cases": cases}
+
+
+def check_tp_grads(run, i):
+    """Case i's loss and every gathered gradient against the reference's;
+    returns the worst |error| / RMS."""
+    from torch_train_helpers import LOSS_ATOL_F32
+    got, want = run["got"][i], run["want"][i]
+    assert abs(float(got[".loss"]) - float(want[".loss"])) <= LOSS_ATOL_F32
+    worst, at = worst_frac(under(got, ".grads"), under(want, ".grads"))
+    assert worst <= GRAD_FRAC_TP, (run["cases"][i], worst, at)
+    return worst

@@ -7,6 +7,16 @@ host devices (``torch_dp_helpers.start_forced`` sets ``XLA_FLAGS``).
       jitted as ``make_train_step`` jits them, for the weights
       ``WEIGHTS/ARCH`` (a checkpoint, step 0); written as checkpoints at
       step 200 + 10 i of OUT, case i
+  python tests/torch_dp_reference.py grads D,M WEIGHTS OUT BASE ARCH ...
+      as ``ep`` on a (D, M) host mesh (D x M forced devices), case i
+      written at step BASE + i of OUT
+  python tests/torch_dp_reference.py decode WEIGHTS OUT ARCH ...
+      on a (1, 2) host mesh, the bf16 weights (step 1 of WEIGHTS/ARCH)
+      placed by ``param_pspecs`` and ``init_cache(B, S)`` placed by
+      ``cache_pspecs``: ``torch_dp_worker``'s prompt fed step by step,
+      then greedy steps, through ``make_serve_step(api, mesh)`` (its
+      tokens) and the same step jitted with its logits kept; OUT gets
+      decode_<ARCH>.npz
   python tests/torch_dp_reference.py int8 OUT
       ``_int8_psum`` in a shard_map over 2 devices of the N(0, 1) leaves
       device r draws from seed r (as ``torch_dp_worker``'s ranks); OUT
@@ -62,6 +72,79 @@ def job_ep(weights, out, *cases):
         save_checkpoint(out, 200 + 10 * i, {"grads": g, "loss": loss})
 
 
+def job_grads(shape, weights, out, base, *archs):
+    d, m = (int(x) for x in shape.split(","))
+    mesh = make_host_mesh(d, m)
+    for i, arch in enumerate(archs):
+        cfg = reduced(get_config(arch))
+        api = build(cfg)
+        like = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape,
+                                                           jnp.float32),
+                            api.abstract_params())
+        batch = {k: jnp.asarray(v) for k, v in
+                 TokenPipeline(cfg, 4, 16, seed=1).batch_at(0).items()}
+        with float32_reference(), compat.set_mesh(mesh):
+            sh = specs_to_shardings(api.param_pspecs(), mesh)
+            params = restore_checkpoint(str(Path(weights) / arch), 0,
+                                        {"params": like},
+                                        shardings={"params": sh})["params"]
+            ctx = Ctx(mesh)
+            loss, g = jax.jit(jax.value_and_grad(
+                lambda p, b: api.train_loss(p, b, ctx)))(params, batch)
+        save_checkpoint(out, int(base) + i, {"grads": g, "loss": loss})
+
+
+def job_decode(weights, out, *archs):
+    from repro.launch.shapes import cache_pspecs
+    from repro.train.train_step import make_serve_step
+    from torch_dp_worker import DECODE_B, DECODE_PROMPT, DECODE_S
+    mesh = make_host_mesh(1, 2)
+    ctx = Ctx(mesh)
+    for arch in archs:
+        cfg = reduced(get_config(arch))
+        api = build(cfg)
+        like = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape,
+                                                           a.dtype),
+                            api.abstract_params())
+        prompt = jnp.asarray(np.random.default_rng(5).integers(
+            0, cfg.vocab, (DECODE_B, DECODE_PROMPT)).astype(np.int32))
+        with compat.set_mesh(mesh):
+            sh = specs_to_shardings(api.param_pspecs(), mesh)
+            params = restore_checkpoint(str(Path(weights) / arch), 1,
+                                        {"params": like},
+                                        shardings={"params": sh})["params"]
+            csh = specs_to_shardings(cache_pspecs(cfg, DECODE_B, mesh),
+                                     mesh)
+            serve = make_serve_step(api, mesh)
+
+            def with_logits(p, c, t, pos):
+                logits, c = api.decode_step(p, c, t, pos, ctx)
+                return (jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None],
+                        logits, c)
+
+            logged = jax.jit(with_logits, donate_argnums=(1,))
+            runs = {}
+            for name in ("serve", "logged"):
+                cache = jax.device_put(api.init_cache(DECODE_B, DECODE_S),
+                                       csh)
+                tok, logits, fed = prompt[:, :1], [], []
+                for pos in range(DECODE_S - 1):
+                    fed.append(np.asarray(tok[:, 0]))
+                    if name == "serve":
+                        nxt, cache = serve(params, cache, tok,
+                                           jnp.int32(pos))
+                    else:
+                        nxt, lg, cache = logged(params, cache, tok,
+                                                jnp.int32(pos))
+                        logits.append(np.asarray(lg, np.float32))
+                    tok = (prompt[:, pos + 1:pos + 2]
+                           if pos + 1 < DECODE_PROMPT else nxt)
+                runs[name] = (np.stack(fed), logits)
+        assert np.array_equal(runs["serve"][0], runs["logged"][0]), arch
+        np.savez(Path(out) / f"decode_{arch}.npz",
+                 logits=np.stack(runs["logged"][1]), fed=runs["serve"][0])
+
+
 def job_int8(out):
     mesh = make_mesh((2,), ("pod",))
     draws = [np.random.default_rng(r) for r in range(2)]
@@ -103,7 +186,8 @@ def job_restore(ckpt, step, arch, out):
 
 def main():
     job, *args = sys.argv[1:]
-    {"ep": job_ep, "int8": job_int8, "restore": job_restore}[job](*args)
+    {"ep": job_ep, "int8": job_int8, "restore": job_restore,
+     "grads": job_grads, "decode": job_decode}[job](*args)
 
 
 if __name__ == "__main__":

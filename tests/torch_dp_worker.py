@@ -5,6 +5,11 @@ starts it as two gloo ranks on the CPU, or alone as the one-rank side).
   python tests/torch_dp_worker.py dp ARCH WEIGHTS OUT
   python tests/torch_dp_worker.py ep WEIGHTS OUT ARCH:CF ...
   python tests/torch_dp_worker.py ckpt OUT
+  python tests/torch_dp_worker.py tp D,M WEIGHTS OUT BASE CASE ...
+  python tests/torch_dp_worker.py tp_step D,M WEIGHTS OUT ARCH
+  python tests/torch_dp_worker.py tp_ckpt D,M OUT
+  python tests/torch_dp_worker.py tp_restore D,M ROOT SAVED OUT
+  python tests/torch_dp_worker.py decode WEIGHTS OUT ARCH ...
 
 WEIGHTS is a checkpoint directory holding {"params": ...} at step 0 (the
 float32 twin) and, for ``dp``, at step 1 (bf16). Results are checkpoints
@@ -195,13 +200,260 @@ def job_ckpt(out):
              **{f"l{i}": t.float().numpy() for i, t in enumerate(flat)})
 
 
+# --------------------------------------------- tensor parallelism (model)
+def tp_layout(shape):
+    d, m = (int(x) for x in shape.split(","))
+    return mesh.make_host_mesh(d, m)
+
+
+def tp_config(case):
+    """A case ``ARCH`` or ``ARCH:head_dim`` (yi-6b's attention split over
+    head_dim, no published config's mode): the reduced config."""
+    arch, _, mode = case.partition(":")
+    cfg = reduced(get_config(arch))
+    return dataclasses.replace(cfg, attn_shard=mode) if mode else cfg
+
+
+def replicated_equal(tree, specs, layout, axis="model"):
+    """Indices of the leaves not split over ``axis`` that differ bit for
+    bit between the ranks along it."""
+    group = layout.group(axis)
+    bad = []
+    for i, (t, spec) in enumerate(zip(tree_leaves(tree), specs)):
+        if any(axis in names for _, names in mesh.sharded_dims(spec,
+                                                              layout)):
+            continue
+        parts = mesh.all_gather_dim(t.contiguous()[None], group, 0)
+        if not all(torch.equal(parts[0], q) for q in parts):
+            bad.append(i)
+    return bad
+
+
+def job_tp(shape, weights, out, base, *cases):
+    """Each case i on the layout ``D,M``: the float32 twin's loss and
+    synced gradients (gathered whole) at step ``BASE + i`` of OUT, then
+    one AdamW step, whose leaves replicated over "model" must stay equal
+    bit for bit on the model ranks (``OUT/replicated.json``)."""
+    layout = tp_layout(shape)
+    flags = {}
+    for i, case in enumerate(cases):
+        cfg = tp_config(case)
+        api = build(cfg)
+        pspecs = api.param_pspecs()
+        params = params_from(api, str(Path(weights) / case.split(":")[0]),
+                             0, layout, torch.float32)
+        step = make_train_step(api, AdamW(lr=cosine_schedule(*LR)),
+                               layout=layout)
+        loss, g = step.grads(params, batch_of(cfg))
+        save_checkpoint(out, int(base) + i, {"grads": g, "loss": loss},
+                        specs={"grads": pspecs, "loss": ()}, layout=layout)
+        opt = AdamW(lr=cosine_schedule(*LR))
+        new, _, met = make_train_step(api, opt, layout=layout)(
+            params, opt.init(params), batch_of(cfg))
+        flags[case] = {"differ": replicated_equal(
+            new, leaf_specs(new, pspecs), layout),
+            "loss": float(met["loss"])}
+    if mesh.world()[0] == 0:
+        (Path(out) / f"replicated_{base}.json").write_text(json.dumps(flags))
+
+
+def job_tp_step(shape, weights, out, arch):
+    """``make_train_step`` of ``ARCH`` (float32 twin) on the layout
+    ``D,M``: per microbatch at m = 1 and 2, and deferred at m = 2; the new
+    parameters (gathered whole), loss and grad norm at steps 400, 401 and
+    402 of OUT, and the replicated leaves' check in OUT/step_<D>_<M>.json;
+    then the deferred m = 2 gradients through int8 (410) and without
+    (411), and each leaf's largest |local sum| over every rank (412)."""
+    layout = tp_layout(shape)
+    cfg = tp_config(arch)
+    api = build(cfg)
+    pspecs = api.param_pspecs()
+    flags = {}
+    for k, kw in enumerate((dict(microbatch=1), dict(microbatch=2),
+                            dict(microbatch=2, grad_sync="deferred"))):
+        params = params_from(api, str(Path(weights) / arch), 0, layout,
+                             torch.float32)
+        opt = AdamW(lr=cosine_schedule(*LR))
+        new, _, met = make_train_step(api, opt, layout=layout, **kw)(
+            params, opt.init(params), batch_of(cfg))
+        flags[400 + k] = replicated_equal(new, leaf_specs(new, pspecs),
+                                          layout)
+        save_checkpoint(out, 400 + k, {"params": new, "loss": met["loss"],
+                                       "gnorm": met["grad_norm"]},
+                        specs={"params": pspecs, "loss": (), "gnorm": ()},
+                        layout=layout)
+    # deferred at m = 2 through int8_all_reduce and without, and the
+    # largest |local sum| of any rank (the quantization scale's source)
+    from repro_torch.models.lm import Ctx
+    params = params_from(api, str(Path(weights) / arch), 0, layout,
+                         torch.float32)
+    gspecs = {"grads": pspecs, "loss": ()}
+    for k, comp in ((410, "int8"), (411, None)):
+        loss, g = make_train_step(api, AdamW(), layout=layout, microbatch=2,
+                                  grad_sync="deferred",
+                                  grad_compression=comp).grads(
+            params, batch_of(cfg))
+        save_checkpoint(out, k, {"grads": g, "loss": loss}, specs=gspecs,
+                        layout=layout)
+    ctx = Ctx(layout)
+    rows = ctx.rows(batch_of(cfg))
+    half = {n: t.shape[0] // 2 for n, t in rows.items()}
+    local = None
+    for i in range(2):
+        sl = {n: t[i * half[n]:(i + 1) * half[n]] for n, t in rows.items()}
+        g = value_and_grad(api, params, sl, ctx)[1]
+        local = g if local is None else tree_map(torch.add, local, g)
+    amax = tree_map(lambda t: mesh.all_reduce_(
+        t.abs().max().reshape(1), torch.distributed.group.WORLD, "max")[0],
+        local)
+    save_checkpoint(out, 412, {"grads": amax},
+                    specs={"grads": tree_map(lambda _: (), amax)},
+                    layout=layout)
+    if mesh.world()[0] == 0:
+        (Path(out) / f"step_{shape.replace(',', '_')}.json").write_text(
+            json.dumps(flags))
+
+
+def job_tp_ckpt(shape, out):
+    """minicpm-2b and deepseek-v2-lite-16b reduced, seeded, one step on
+    the layout ``D,M``; saved (parameters and AdamW state) at step 7 of
+    OUT/<ARCH>_<D>_<M>, each rank's blocks in ``held_r<rank>.npz`` there;
+    then each checkpoint ``OUT/<ARCH>_one`` (written at one rank) restored
+    here, the blocks in ``back_r<rank>.npz``."""
+    layout = tp_layout(shape)
+    rank = mesh.world()[0]
+    for arch in ("minicpm-2b", "deepseek-v2-lite-16b"):
+        cfg = reduced(get_config(arch))
+        api = build(cfg)
+        pspecs = api.param_pspecs()
+        opt = AdamW(lr=cosine_schedule(*LR))
+        specs = {"params": pspecs, "opt": opt.state_pspecs(pspecs)}
+        params = api.init_params(torch.Generator().manual_seed(0),
+                                 layout=layout)
+        state = opt.init(params)
+        params, state, _ = make_train_step(api, opt, layout=layout)(
+            params, state, batch_of(cfg))
+        d = Path(out) / f"{arch}_{shape.replace(',', '_')}"
+        d.mkdir(parents=True, exist_ok=True)
+        held = tree_leaves(params) + tree_leaves(state.m)
+        np.savez(d / f"held_r{rank}.npz",
+                 **{f"l{i}": t.float().numpy() for i, t in enumerate(held)})
+        save_checkpoint(str(d), 7, {"params": params, "opt": state},
+                        specs=specs, layout=layout)
+        back = restore_checkpoint(str(Path(out) / f"{arch}_one"), 7,
+                                  {"params": params, "opt": state},
+                                  specs=specs, layout=layout)
+        flat = tree_leaves(back["params"]) + tree_leaves(back["opt"].m)
+        np.savez(d / f"back_r{rank}.npz",
+                 **{f"l{i}": t.float().numpy() for i, t in enumerate(flat)})
+
+
+def job_tp_restore(shape, root, saved, out):
+    """Each of ``job_tp_ckpt``'s architectures: its checkpoint at step 7
+    of ROOT/<ARCH>_<SAVED> restored on the layout ``D,M``, each rank's
+    blocks in OUT/<ARCH>_<D>_<M>_r<rank>.npz."""
+    layout = tp_layout(shape)
+    rank = mesh.world()[0]
+    for arch in ("minicpm-2b", "deepseek-v2-lite-16b"):
+        cfg = reduced(get_config(arch))
+        api = build(cfg)
+        pspecs = api.param_pspecs()
+        opt = AdamW(lr=cosine_schedule(*LR))
+        params = api.init_params(torch.Generator().manual_seed(1),
+                                 layout=layout)
+        back = restore_checkpoint(str(Path(root) / f"{arch}_{saved}"), 7,
+                                  {"params": params,
+                                   "opt": opt.init(params)},
+                                  specs={"params": pspecs,
+                                         "opt": opt.state_pspecs(pspecs)},
+                                  layout=layout)
+        flat = tree_leaves(back["params"]) + tree_leaves(back["opt"].m)
+        Path(out).mkdir(parents=True, exist_ok=True)
+        np.savez(Path(out) / f"{arch}_{shape.replace(',', '_')}_r{rank}.npz",
+                 **{f"l{i}": t.float().numpy() for i, t in enumerate(flat)})
+
+
+DECODE_B, DECODE_PROMPT, DECODE_S = 4, 8, 24
+
+
+def decode_prompt(cfg):
+    """The decode tests' prompt: (DECODE_B, DECODE_PROMPT) tokens of
+    seed 5."""
+    return np.random.default_rng(5).integers(
+        0, cfg.vocab, (DECODE_B, DECODE_PROMPT)).astype(np.int64)
+
+
+def prefill_batch(cfg):
+    """The prefill check's batch: the decode prompt (and for Whisper
+    frames of seed 6)."""
+    batch = {"tokens": torch.as_tensor(decode_prompt(cfg))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(np.random.default_rng(6).normal(
+            size=(DECODE_B, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def job_decode(weights, out, *archs):
+    """Each architecture's bf16 weights (step 1 of WEIGHTS/ARCH) on a
+    (1, n) layout: the prompt fed step by step into ``init_cache(...,
+    layout=)``, then greedy steps through ``make_serve_step(api,
+    layout)``, DECODE_S - 1 steps in all; the logits and tokens of every
+    step in OUT/decode_<ARCH>.npz, with each cache leaf's block shape;
+    then ``make_prefill(api, DECODE_S, layout)`` on the float32 twin (step
+    0), each rank's hidden states and cache blocks in
+    OUT/prefill_<ARCH>_r<rank>.npz."""
+    from repro_torch.launch.shapes import cache_pspecs
+    from repro_torch.train.train_step import make_prefill, make_serve_step
+    layout = mesh.make_host_mesh(1, mesh.world()[1])
+    for arch in archs:
+        cfg = reduced(get_config(arch))
+        api = build(cfg)
+        params = params_from(api, str(Path(weights) / arch), 1, layout,
+                             torch.bfloat16)
+        prompt = torch.as_tensor(decode_prompt(cfg))
+        cache = api.init_cache(DECODE_B, DECODE_S, device="cpu",
+                               layout=layout)
+        shapes = [list(t.shape) for t in tree_leaves(cache)]
+        specs = leaf_specs(cache, cache_pspecs(cfg, DECODE_B, layout))
+        logits, fed = [], []
+
+        def recording(*a, **kw):
+            lg, c = api.decode_step(*a, **kw)
+            logits.append(lg.numpy().copy())
+            return lg, c
+
+        step = make_serve_step(dataclasses.replace(api,
+                                                   decode_step=recording),
+                               layout)
+        tok = prompt[:, :1]
+        for pos in range(DECODE_S - 1):
+            fed.append(tok[:, 0].numpy())
+            nxt, cache = step(params, cache, tok, pos)
+            tok = (prompt[:, pos + 1:pos + 2] if pos + 1 < DECODE_PROMPT
+                   else nxt)
+        if mesh.world()[0] == 0:
+            np.savez(Path(out) / f"decode_{arch}.npz",
+                     logits=np.stack(logits), fed=np.stack(fed),
+                     shapes=json.dumps(shapes), specs=json.dumps(specs))
+        # make_prefill under the layout on the float32 twin: the last
+        # hidden states and this rank's cache blocks
+        f32 = params_from(api, str(Path(weights) / arch), 0, layout,
+                          torch.float32)
+        h, pc = make_prefill(api, DECODE_S, layout)(f32, prefill_batch(cfg))
+        np.savez(Path(out) / f"prefill_{arch}_r{mesh.world()[0]}.npz",
+                 h=h.numpy(), **{f"c{i}": t.numpy()
+                                 for i, t in enumerate(tree_leaves(pc))})
+
+
 def main():
     if mesh.launched():
         mesh.init_group("gloo", "cpu")
     torch.set_num_threads(1)
     job, *args = sys.argv[1:]
     {"layout": job_layout, "dp": job_dp, "ep": job_ep,
-     "ckpt": job_ckpt}[job](*args)
+     "ckpt": job_ckpt, "tp": job_tp, "tp_step": job_tp_step,
+     "tp_ckpt": job_tp_ckpt, "tp_restore": job_tp_restore,
+     "decode": job_decode}[job](*args)
     mesh.destroy_group()
 
 
