@@ -214,6 +214,20 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    gradient on the card against the CPU; ``python -m
    torch.distributed.run ... repro_torch.launch.train --model-axis 2``
    (gloo, reduced minicpm-2b) and its resume at ``--model-axis 1``.
+3l. The dry run (``repro_torch.launch.dryrun``): its traces run in two
+   background processes from the start of phase 3 (host work beside the
+   card's phases) and are read after 3k. Phase 3i's step (gemma3-4b at
+   full width and depth, one card, batch 8 x 64, microbatch 1, AdamW with
+   float32 moments and master) traced on fake CUDA tensors: its FLOPs
+   must equal the FLOPs FlopCounterMode counted on the card's step in
+   3i, its MemTracker peak be within 10 % of 3i's measured peak. The
+   production cells gemma3-4b train_4k (meta tensors), deepseek-v2-236b
+   decode_32k, jamba-v0.1-52b long_500k and whisper-medium prefill_32k on
+   a fake 16 x 16 group with probes, deepseek-v2-236b decode_32k on 2 x
+   16 x 16: each "ok", its roofline terms finite, its trace time logged.
+   The Gram and cluster dry runs at their command lines' defaults on
+   both layouts; the one-rank Gram dry run's cells equal to the real
+   one-rank job's ``visited_cells`` (K1 on the card).
    For each path (each part of 3f and 3g) the launch counters are set to
    0 just before and read just after, and each of its kernels must have
    launched. A torch.profiler pass, after 3g and before 3h, gives the
@@ -245,14 +259,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, and
-# HBM3 bandwidth
-FP32_PEAK = 67e12
-HBM_RATE = 3.35e12
-# special-function unit (expf's ex2): 16 results per clock per SM on
-# compute capability 9.0 (CUDA C Programming Guide, arithmetic instruction
-# throughput), 132 SMs at the H100 SXM's 1.98 GHz boost clock
-SFU_RATE = 16 * 132 * 1.98e9
+# H100 SXM peaks (NVIDIA data sheet: FP32 outside the tensor cores, HBM3
+# bandwidth, the special-function unit) and the kernels' work a needed DP
+# cell, which the dry run counts too (fails outside the repository)
+from repro_torch.launch.cost_analysis import (  # noqa: E402
+    FP32_PEAK, HBM_BW as HBM_RATE, KRDTW_DIAG_FLOPS, KRDTW_DIAG_SFU,
+    KRDTW_FLOPS, SFU_RATE, SOFT_BWD_SFU, SOFT_FWD_SFU,
+    admissible_cells as _admissible_cells, bound_cells as _bound_cells,
+    dtw_flops as _dtw_flops, krdtw_bound as _krdtw_bound,
+    soft_bwd_flops as _soft_bwd_flops, soft_fwd_flops as _soft_fwd_flops,
+    spdtw_flops as _spdtw_flops)
 REL_LIMIT = 1e-6
 DEVICE = "cuda"
 # the main path: UCR TwoPatterns' published split and length
@@ -1342,198 +1358,11 @@ def _check_paired_main(eng, label, gamma):
 # Phase 3d: the paper's tables (benchmarks/common.py's protocol)
 # ---------------------------------------------------------------------------
 
-# the protocol's grids and tables, as benchmarks/common.py DatasetBench and
-# benchmarks/table{2,4,6}*.py
-TABLE_THETAS = (0, 1, 2, 4, 8)
-TABLE_GAMMAS = (0.0, 0.5)
-TABLE_NUS = (0.1, 0.5, 2.0)
-TABLE2 = ("corr", "daco", "euclidean", "dtw", "dtw_sc", "krdtw", "spdtw",
-          "sp_krdtw")
-TABLE4 = ("euclidean_rbf", "krdtw", "krdtw_sc", "sp_krdtw")
-TABLE_TILE = 16
-RBF_GAMMA = 0.1
 # the reference's rows at the generators' default sizes, made on the CPU
 # by tools/paper_tables_reference.py
 TABLES_FIXTURE = "tests/torch_tables_reference.json"
-# the entries of a protocol row held against the fixture
-TABLE_KEYS = ("T", "n_train", "n_test", "n_classes", "radius", "radius_loo",
-              "spdtw_theta", "spdtw_gamma", "spdtw_loo", "nu",
-              "sp_krdtw_theta", "sp_krdtw_loo", "knn_error", "svm_error",
-              "visited_cells", "tile", "active_tiles", "tiles_total")
 TABLES_DEPENDS = ("spdtw_tiles_gram", "spdtw_tiles_paired", "krdtw_gram",
                   "krdtw_paired", "dtw_wavefront", "dtw_banded")
-
-
-def _rbf_gram(X, Y, gamma=RBF_GAMMA, block=256):
-    """exp(-gamma ||x - y||^2) for all pairs, rows in blocks (the Table IV
-    Euclidean baseline, ``benchmarks/table4_svm.py``)."""
-    import torch
-    return torch.cat([torch.exp(-gamma * torch.sum(
-        (X[s:s + block, None, :] - Y[None, :, :]) ** 2, dim=-1))
-        for s in range(0, X.shape[0], block)])
-
-
-def paper_tables(ds, device, timer=None):
-    """The protocol of ``benchmarks/common.py`` (``DatasetBench``, with
-    Tables II, IV and VI) on one dataset through the port's public API,
-    on ``device``: occupancy counts, ``select_radius``,
-    ``select_theta_gamma`` for spdtw and sp_krdtw, ``select_nu``; the
-    eight 1-NN errors from ``make_measure(...).cross``; the SVM errors of
-    the Euclidean RBF and the three K_rdtw kernels (``gram_log`` and one
-    batched ``logk`` for the self-similarities); visited cells and the
-    active tiles at tile 16. ``timer(name, fn)`` runs each stage (default:
-    just calls it). Returns (row, extras): the row has the keys of
-    ``tools/paper_tables_reference.py``; extras hold the measures and the
-    spdtw / dtw cross matrices."""
-    import torch
-    from repro_torch.classify import (knn_error, select_nu, select_radius,
-                                      select_theta_gamma, svm_error)
-    from repro_torch.core import (block_sparsify, make_measure,
-                                  normalized_gram, pairwise_path_counts)
-    run = timer or (lambda name, fn: fn())
-    Xtr = torch.as_tensor(ds.X_train, device=device)
-    Xte = torch.as_tensor(ds.X_test, device=device)
-    ytr, yte, T = ds.y_train, ds.y_test, ds.T
-    counts = run("pairwise_path_counts", lambda: pairwise_path_counts(Xtr))
-    sel_r = run("select_radius (K6)",
-                lambda: select_radius(Xtr, ytr, device=device))
-    sel_sp = run("select_theta_gamma spdtw (K1)",
-                 lambda: select_theta_gamma(
-                     Xtr, ytr, name="spdtw", counts=counts,
-                     thetas=TABLE_THETAS, gammas=TABLE_GAMMAS,
-                     device=device))
-    nu = run("select_nu krdtw (K3)",
-             lambda: select_nu(Xtr, ytr, name="krdtw", grid=TABLE_NUS,
-                               device=device)).nu
-    sel_spk = run("select_theta_gamma sp_krdtw (K3)",
-                  lambda: select_theta_gamma(
-                      Xtr, ytr, name="sp_krdtw", counts=counts,
-                      thetas=TABLE_THETAS, nu=nu, device=device))
-
-    def measure(name):
-        sp = {"spdtw": sel_sp.sp, "sp_krdtw": sel_spk.sp}.get(name)
-        return make_measure(name, T, sp=sp, nu=nu, radius=sel_r.radius,
-                            device=device)
-
-    measures = {m: measure(m) for m in TABLE2 + ("krdtw_sc",)}
-    knn, crosses = {}, {}
-    for m in TABLE2:
-        C = run(f"Table II cross {m}",
-                lambda m=m: measures[m].cross(Xte, Xtr))
-        knn[m] = knn_error(C, ytr, yte)
-        if m in ("spdtw", "dtw"):
-            crosses[m] = C
-    svm = {"euclidean_rbf": run("Table IV euclidean_rbf Grams + svm_error",
-                                lambda: svm_error(
-                                    _rbf_gram(Xtr, Xtr), _rbf_gram(Xte, Xtr),
-                                    ytr, yte, ds.n_classes))}
-    for m in TABLE4[1:]:
-        msr = measures[m]
-
-        def grams(msr=msr):
-            lg_tt = msr.gram_log(Xtr, Xtr)
-            lg_et = msr.gram_log(Xte, Xtr)
-            d_tt = torch.diagonal(lg_tt)
-            d_ee = msr.logk(Xte, Xte)
-            return (normalized_gram(lg_tt, d_tt, d_tt),
-                    normalized_gram(lg_et, d_ee, d_tt))
-
-        Ktr, Kte = run(f"Table IV {m} Grams (K3) + self-similarities (K4)",
-                       grams)
-        svm[m] = run(f"Table IV {m} svm_error",
-                     lambda: svm_error(Ktr, Kte, ytr, yte, ds.n_classes))
-    bsp = block_sparsify(sel_sp.sp, tile=TABLE_TILE)
-    row = {"T": int(T), "n_train": len(ds.X_train),
-           "n_test": len(ds.X_test), "n_classes": int(ds.n_classes),
-           "radius": int(sel_r.radius), "radius_loo": float(sel_r.loo),
-           "spdtw_theta": float(sel_sp.theta),
-           "spdtw_gamma": float(sel_sp.gamma),
-           "spdtw_loo": float(sel_sp.loo), "nu": float(nu),
-           "sp_krdtw_theta": float(sel_spk.theta),
-           "sp_krdtw_loo": float(sel_spk.loo), "knn_error": knn,
-           "svm_error": svm,
-           "visited_cells": {m: int(v.visited_cells)
-                             for m, v in measures.items()},
-           "tile": TABLE_TILE, "active_tiles": int(bsp.n_active),
-           "tiles_total": int(bsp.active.size)}
-    return row, {"measures": measures, "crosses": crosses,
-                 "sel_sp": sel_sp, "Xtr": Xtr, "Xte": Xte}
-
-
-# errors and LOOs are float32 fractions k / n, which the two packages
-# round differently in the last bit (XLA's mean multiplies by 1 / n): two
-# values within FRACTION_ATOL are the same fraction for any n <= 10^5
-FRACTION_ATOL = 1e-6
-
-
-def _same(g, w) -> bool:
-    if isinstance(w, float) and isinstance(g, (int, float)):
-        return abs(g - w) <= FRACTION_ATOL
-    return g == w
-
-
-def compare_rows(got, want):
-    """The entries of TABLE_KEYS where a protocol row differs from the
-    reference's, as "key: got != want" strings (every count and selection
-    equal; errors and LOOs the same fraction, within FRACTION_ATOL)."""
-    bad = []
-    for k in TABLE_KEYS:
-        g, w = got.get(k), want.get(k)
-        if isinstance(w, dict):
-            g = g or {}
-            bad += [f"{k}.{m}: {g.get(m)} != {w[m]}"
-                    for m in w if not _same(g.get(m), w[m])]
-        elif not _same(g, w):
-            bad.append(f"{k}: {g} != {w}")
-    return bad
-
-
-def mean_ranks(mat, names):
-    """Mean rank of each column over the rows of an error matrix, ties
-    taking their average rank (``benchmarks/table2_knn.py``)."""
-    import numpy as np
-    ranks = np.argsort(np.argsort(mat, axis=1), axis=1) + 1.0
-    for i in range(mat.shape[0]):
-        for v in np.unique(mat[i]):
-            sel = mat[i] == v
-            if sel.sum() > 1:
-                ranks[i, sel] = ranks[i, sel].mean()
-    return {m: float(r) for m, r in zip(names, ranks.mean(axis=0))}
-
-
-def wilcoxon_signed_rank(a, b) -> float:
-    """Two-sided Wilcoxon signed-rank p-value (normal approximation), as
-    ``benchmarks/common.py`` computes it: zeros dropped, ties averaged,
-    1.0 below six nonzero differences."""
-    import numpy as np
-    from math import erf, sqrt
-    d = np.asarray(a, float) - np.asarray(b, float)
-    d = d[d != 0]
-    n = len(d)
-    if n < 6:
-        return 1.0
-    ranks = np.argsort(np.argsort(np.abs(d))) + 1.0
-    order = np.abs(d)
-    for v in np.unique(order):
-        sel = order == v
-        if sel.sum() > 1:
-            ranks[sel] = ranks[sel].mean()
-    w = min(ranks[d > 0].sum(), ranks[d < 0].sum())
-    mu = n * (n + 1) / 4
-    sigma = np.sqrt(n * (n + 1) * (2 * n + 1) / 24)
-    z = (w - mu + 0.5) / sigma
-    p = 2 * 0.5 * (1 + erf(z / sqrt(2)))
-    return min(max(p, 0.0), 1.0)
-
-
-def _summary(rows, names, key):
-    """Mean ranks and pairwise Wilcoxon p-values of one table."""
-    import numpy as np
-    mat = np.array([[rows[d][key][m] for m in names] for d in rows])
-    wil = {f"{a}|{b}": wilcoxon_signed_rank(mat[:, i], mat[:, j])
-           for i, a in enumerate(names) for j, b in enumerate(names)
-           if j > i}
-    return mean_ranks(mat, names), wil
 
 
 def phase_tables(main):
@@ -1547,8 +1376,10 @@ def phase_tables(main):
     equal to ``engine.knn``'s neighbours bit for bit, and the dtw nearest
     distances of ``Measure.pair`` (K5) against the cross minima. Launch
     counters are set to 0 just before each pass and read just after."""
-    import numpy as np
     import torch
+    from repro_torch.classify.protocol import (TABLE2, TABLE4, TABLE_TILE,
+                                               compare_rows, paper_tables,
+                                               summary)
     from repro_torch.core.engine import fit
     from repro_torch.core.spec import MeasureSpec
     from repro_torch.data import DATASETS
@@ -1583,7 +1414,7 @@ def phase_tables(main):
     log(f"  launches on the equality pass: {eq_launches}")
     for what, names, key in (("Table II", TABLE2, "knn_error"),
                              ("Table IV", TABLE4, "svm_error")):
-        ranks, wil = _summary(rows, names, key)
+        ranks, wil = summary(rows, names, key)
         log(f"  {what} mean ranks: " + ", ".join(
             f"{m} {v:.2f}" for m, v in ranks.items()))
         log(f"  {what} Wilcoxon p: " + ", ".join(
@@ -4221,59 +4052,195 @@ def phase_tp():
 
 
 # ---------------------------------------------------------------------------
-# Phase 4
+# Phase 3l: the dry run
 # ---------------------------------------------------------------------------
 
-def _bound_cells(cells, flops, sfu, in_bytes, out_bytes):
-    """Least time (ms) for ``cells`` needed DP cells of ``flops`` FP32
-    operations and ``sfu`` special-function results each, against the
-    bytes read and written once; and what bounds it."""
-    t_ops = max(cells * flops / FP32_PEAK, cells * sfu / SFU_RATE)
-    t_bytes = (in_bytes + out_bytes) / HBM_RATE
-    return max(t_ops, t_bytes) * 1e3, \
-        ("operations" if t_ops >= t_bytes else "bytes")
+# the production cells phase 3l holds: (arch, shape, multi_pod, probes)
+DRYRUN_CELLS = (("gemma3-4b", "train_4k", False, True),
+                ("deepseek-v2-236b", "decode_32k", False, True),
+                ("jamba-v0.1-52b", "long_500k", False, True),
+                ("whisper-medium", "prefill_32k", False, True),
+                ("deepseek-v2-236b", "decode_32k", True, False))
+# the traced peak of phase 3i's step against the card's measured peak
+DRYRUN_PEAK_REL = 0.10
+DRYRUN_WAIT_S = 600
+# the Gram job's command-line defaults (n, T)
+DRYRUN_GRAM = (2048, 128)
 
 
-# per needed cell of log K_rdtw: kappa (sub, mul, mul by -nu), K1 (2 add,
-# 2 mul), K2 (3 add, 5 mul), the rescale (4 mul) = 19 FP32 operations
-# and one expf
-KRDTW_FLOPS = 19
-# per pair and diagonal k = 1 .. 2T-2, whatever the support: the rescale's
-# logf and division, 2 special-function results (lg2, rcp) and 2 FP32
-# operations (the log's scale multiply, the running sum's add)
-KRDTW_DIAG_SFU, KRDTW_DIAG_FLOPS = 2, 2
+def _dryrun_start(out):
+    """Start the dry run's traces (host work, beside the card's phases):
+    the first cell, whose real step traces 16 microbatches at full depth,
+    through ``python -m repro_torch.launch.dryrun --meta`` in one process
+    (meta tensors: the same counts as fake ones in about 40 % of the host
+    time), the trace of phase 3i's step and the other cells on fake CUDA
+    tensors in another (``chip_smoke.py --dryrun-job OUT``). Returns
+    [(process, start, what)]."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    arch, shape, _, _ = DRYRUN_CELLS[0]
+    cmds = [([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+              arch, "--shape", shape, "--meta", "--force", "--out",
+              str(out)],
+             f"the dry run of {arch} {shape}"),
+            ([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-job",
+              str(out)], "the dry run of phase 3i's step and the cells")]
+    return [(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True),
+             time.perf_counter(), what) for cmd, what in cmds]
 
 
-def _krdtw_bound(pairs, T, cells, in_bytes, out_bytes):
-    """Least time (ms) of ``pairs`` log K_rdtw sweeps of ``cells``
-    admissible cells each over series of length T: the cells' operations
-    and expf, and the (2T - 2) per-diagonal rescales of every pair."""
-    diags = pairs * (2 * T - 2)
-    t_ops = max((pairs * cells * KRDTW_FLOPS + diags * KRDTW_DIAG_FLOPS)
-                / FP32_PEAK,
-                (pairs * cells + diags * KRDTW_DIAG_SFU) / SFU_RATE)
-    t_bytes = (in_bytes + out_bytes) / HBM_RATE
-    return max(t_ops, t_bytes) * 1e3, \
-        ("operations" if t_ops >= t_bytes else "bytes")
+def _dryrun_stop(procs):
+    """Kill whatever of the background traces still runs."""
+    import os
+    import signal
+    for proc, _, _ in procs or ():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
 
 
-def _admissible_cells(T, radius=None, support=None):
-    """Cells of the T x T grid inside the corridor and the support."""
-    import numpy as np
-    i = np.arange(T)
-    ok = np.ones((T, T), bool) if support is None else np.asarray(support)
-    if radius is not None:
-        ok = ok & (np.abs(i[:, None] - i[None, :]) <= radius)
-    return int(ok.sum())
-# per needed cell of DTW: d sub, d mul, d - 1 add, then 2 min and 1 add
-def _dtw_flops(d):
-    return 3 * d + 2
+def _dryrun_job(out) -> int:
+    """The second background process of phase 3l: phase 3i's step traced
+    as one card runs it (gemma3-4b at full width and depth, no group,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, microbatch 1, AdamW with
+    float32 moments and master) on fake CUDA tensors under MemTracker and
+    FlopCounterMode, then ``DRYRUN_CELLS[1:]``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import Cell
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    out = Path(out)
+    t0 = time.perf_counter()
+    with dryrun.fake_tensors():
+        batch = {"tokens": torch.empty((TRAIN_BATCH, TRAIN_SEQ + 1),
+                                       dtype=torch.long)}
+        cell = Cell("train", (batch,), {}, TRAIN_SEQ, TRAIN_BATCH,
+                    TRAIN_BATCH * TRAIN_SEQ)
+        _, memory, flops = dryrun.trace_real_step(
+            get_config(TRAIN_FULL_ARCH), "train_4k", None, microbatch=1,
+            opt=AdamW(lr=cosine_schedule(TRAIN_LR, 1, TRAIN_STEPS)),
+            cell=cell, flops=True)
+    (out / "step_3i.json").write_text(json.dumps(
+        {"memory": memory, "flops": flops,
+         "trace_s": time.perf_counter() - t0,
+         "device": str(dryrun.trace_device())}))
+    for arch, shape, multi, probes in DRYRUN_CELLS[1:]:
+        res = dryrun.dryrun_cell(arch, shape, multi, probes=probes)
+        (out / f"{dryrun.cell_tag(arch, shape, multi)}.json").write_text(
+            json.dumps(res, indent=1))
+    return 0
 
 
-# per needed cell of SP-DTW: DTW's, and 1 weight multiply
-def _spdtw_flops(d):
-    return 3 * d + 3
+def phase_dryrun(procs, out, train):
+    """The dry run against the card. Phase 3i's step traced on fake CUDA
+    tensors: its FLOPs must equal the FLOPs FlopCounterMode counted on
+    the card's step, and its MemTracker peak be within
+    ``DRYRUN_PEAK_REL`` of the card's measured peak. The production cells
+    (``DRYRUN_CELLS``, on a fake 256- or 512-rank group): each "ok", its
+    roofline terms finite, its trace time logged. The Gram and cluster
+    dry runs at their command lines' defaults on both layouts, and the
+    one-rank Gram dry run's cells equal to the ``visited_cells`` of the
+    real one-rank job (K1 on this card)."""
+    import math
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import cluster, gram, mesh
+    from repro_torch.launch.dryrun import cell_tag
+    out = Path(out)
+    t0 = time.perf_counter()
+    for proc, start, what in procs:
+        try:
+            text = proc.communicate(timeout=max(
+                1.0, DRYRUN_WAIT_S - (time.perf_counter() - t0)))[0]
+        except subprocess.TimeoutExpired:
+            _dryrun_stop(procs)
+            raise AssertionError(f"{what} passed {DRYRUN_WAIT_S} s of "
+                                 f"waiting in phase 3l")
+        require(proc.returncode == 0, f"{what} failed (exit "
+                f"{proc.returncode}):\n{text[-4000:]}")
+        log(f"  {what}: started {t0 - start:.1f} s before phase 3l, "
+            f"done {time.perf_counter() - t0:.1f} s into it")
+    step = json.loads((out / "step_3i.json").read_text())
+    full = train["full"]
+    measured = max(r["peak_gb"] for r in full["rows"]) * 1e9
+    peak = step["memory"]["peak_bytes_est"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  card: {card_line()}; total memory {total / 1e9:.2f} GB")
+    log(f"  phase 3i's step ({TRAIN_FULL_ARCH}, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, microbatch 1, one card) traced on "
+        f"{step['device']} fake tensors in {step['trace_s']:.1f} s: "
+        f"{step['flops']:.6e} FLOPs predicted, {full['flops']:.6e} "
+        f"counted on the card; peak {peak / 1e9:.3f} GB predicted "
+        f"(arguments {step['memory']['argument_bytes'] / 1e9:.3f} GB), "
+        f"{measured / 1e9:.3f} GB measured "
+        f"({100 * (peak - measured) / measured:+.2f}%)")
+    require(step["flops"] == full["flops"],
+            f"the traced step's FLOPs {step['flops']} != the card's "
+            f"{full['flops']}")
+    require(abs(peak - measured) <= DRYRUN_PEAK_REL * measured,
+            f"the traced peak {peak} is not within {DRYRUN_PEAK_REL} of the "
+            f"measured {measured}")
+    cells = []
+    for arch, shape, multi, probes in DRYRUN_CELLS:
+        res = json.loads((out / f"{cell_tag(arch, shape, multi)}.json"
+                          ).read_text())
+        require(res["status"] == "ok",
+                f"dry run {arch} {shape} {res.get('mesh')}: "
+                f"{res['status']} {res.get('error', '')}")
+        mem = res["memory"]
+        line = (f"  {arch} {shape} on {res['mesh']} ({res['device']}): "
+                f"trace {res['trace_s']:.1f} s, peak "
+                f"{mem['peak_bytes_est'] / 1e9:.2f} GB a rank (arguments "
+                f"{mem['argument_bytes'] / 1e9:.2f}), fits 80 GB "
+                f"{mem['fits_80GB']}")
+        if probes:
+            rl = res["roofline"]
+            terms = [rl["compute_s"], rl["memory_s"], rl["collective_s"]]
+            require(all(math.isfinite(t) and t >= 0 for t in terms),
+                    f"dry run {arch} {shape}: roofline terms {terms}")
+            line += (f"; probes {res['probe_s']:.1f} s: "
+                     f"{res['flops_per_device']:.4e} FLOPs, "
+                     f"{res['bytes_per_device']:.4e} bytes, "
+                     f"{res['coll_bytes_per_device']:.4e} wire bytes a "
+                     f"rank; predicted compute {rl['compute_s']:.4g} s, "
+                     f"memory {rl['memory_s']:.4g} s, collective "
+                     f"{rl['collective_s']:.4g} s ({rl['dominant']}), "
+                     f"useful FLOPs {res['useful_flops_ratio']:.3f}")
+        log(line)
+        cells.append(res)
+    n, t = DRYRUN_GRAM
+    reset_launch_counts()
+    stats = {}
+    gram.run(n, t, "spdtw", device=DEVICE, stats=stats)
+    launches = launch_counts()
+    one = gram.dryrun(n, t, "spdtw")
+    log(f"  gram, one rank: {one['cells_per_device']} cells counted, "
+        f"{stats['visited_cells']} visited by the real job on the card "
+        f"(launches {launches})")
+    require(one["cells_per_device"] == stats["visited_cells"],
+            "the one-rank Gram dry run's cells != the real job's")
+    require(launches["spdtw_tiles_gram"] > 0, "the real Gram job ran no K1")
+    for ranks, multi in ((256, False), (512, True)):
+        with mesh.fake_world(ranks):
+            layout = mesh.make_production_mesh(multi_pod=multi)
+            for name, res in (("gram", gram.dryrun(n, t, "spdtw",
+                                                   layout=layout)),
+                              ("cluster", cluster.dryrun(layout=layout))):
+                log(f"  {name} --dryrun on {ranks} ranks: " + ", ".join(
+                    f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in res.items()))
+    log(f"  phase 3l wall time {time.perf_counter() - t0:.1f} s")
+    return {"step": step, "cells": cells}
 
+
+# ---------------------------------------------------------------------------
+# Phase 4
+# ---------------------------------------------------------------------------
 
 def phase_timing_slice2(kp, ds):
     """K3-K6 at the kernel path's shapes against their plain versions,
@@ -4450,27 +4417,6 @@ def phase_timing_slice2(kp, ds):
         f"{geo['template']}): {dms:.3f} ms device (plain {pms:.1f} ms on "
         f"2x{nl}, bound {bound[0]:.4f} ms by {bound[1]})")
     return rows
-
-
-# per needed cell of the soft forward: the logit (3d + 1: d sub, d mul,
-# d - 1 add, the weight and the -1/gamma multiplies), the top / top-left
-# logaddexp and the in-row one (sub, max, abs, add each) with their two
-# adds, = 3d + 11 FP32 operations; and an expf and a log1pf per
-# logaddexp: 4 special-function results
-def _soft_fwd_flops(d):
-    return 3 * d + 11
-
-
-SOFT_FWD_SFU = 4
-# per needed cell of the reverse sweep: three transition coefficients
-# (add, sub, two clamps, three compares; an expf each), f = a E + c E' + inj
-# (4), the in-row recurrence (2), the logit (3d + 2) and the cotangent
-# terms (E w, E phi gbar, 2d for the row and column sums)
-SOFT_BWD_SFU = 3
-
-
-def _soft_bwd_flops(d):
-    return 5 * d + 29
 
 
 def phase_timing_soft(main, cp):
@@ -4798,6 +4744,7 @@ def phase_profile(main, kp=None, cp=None, tp=None, serving=False):
                        main["ds"].X_test, batch=SERVE_BATCH))]
     # the protocol last: its ~5 x 10^5 records take the profiler longest
     if tp is not None:
+        from repro_torch.classify.protocol import paper_tables
         calls += [(f"paper-table protocol, TwoPatterns {N_TRAIN}/{N_TEST}",
                    lambda: paper_tables(main["ds"], DEVICE))]
     t_first = time.perf_counter()
@@ -4846,11 +4793,15 @@ def main(argv=None) -> int:
                          "prints no result")
     ap.add_argument("--dp-rank", nargs="+", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if args.dp_rank:
         # one rank of phase 3j or 3k, started by the phase itself
         return _dp_rank_main(args.dp_rank)
+    if args.dryrun_job:
+        # phase 3l's background traces, started by main
+        return _dryrun_job(args.dryrun_job)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4867,6 +4818,19 @@ def main(argv=None) -> int:
     phase_kernels()
     if args.stop_after < 3:
         return 0
+    import tempfile
+    with tempfile.TemporaryDirectory() as dry_out:
+        dry = _dryrun_start(dry_out)
+        try:
+            return _phases_3_4(args, t0, dry, dry_out)
+        finally:
+            _dryrun_stop(dry)
+
+
+def _phases_3_4(args, t0, dry, dry_out) -> int:
+    """Phases 3 to 4 (``main``'s), with the dry run's background traces
+    ``dry`` writing into ``dry_out``."""
+    import torch
     log(f"phase 3: main path, TwoPatterns {N_TRAIN}/{N_TEST}, T={T_MAIN} "
         f"({time.perf_counter() - t0:.1f} s)")
     main_out = phase_main_path()
@@ -4899,7 +4863,7 @@ def main(argv=None) -> int:
     log(f"phase 3i: LM / Whisper training, {TRAIN_FULL_ARCH} at full width, "
         f"{WHISPER_ARCH} whole, the other eight reduced "
         f"({time.perf_counter() - t0:.1f} s)")
-    phase_train()
+    train = phase_train()
     log(f"phase 3j: multi-rank LM training over the data axis, {DP_ARCH} "
         f"at published width on {DP_RANKS} gloo ranks, the modes card "
         f"against CPU, one nccl rank, the example twins "
@@ -4911,6 +4875,11 @@ def main(argv=None) -> int:
         f"CPU, launch.train --model-axis {TP_RANKS} "
         f"({time.perf_counter() - t0:.1f} s)")
     phase_tp()
+    log(f"phase 3l: the dry run, phase 3i's step traced on fake tensors "
+        f"against the card, {len(DRYRUN_CELLS)} production cells on fake "
+        f"256- and 512-rank groups, the Gram and cluster dry runs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    phase_dryrun(dry, dry_out, train)
     if args.stop_after < 4:
         return 0
     log(f"phase 4: kernel timing at the paths' shapes "

@@ -20,15 +20,21 @@
                   ``gather_leaf``, ``local_shape``); the tensor-parallel
                   boundaries ``copy_to`` / ``reduce_from`` /
                   ``gather_from`` (autograd functions over a group)
-  shapes.py       ``SHAPES``, ``cell_supported``, ``cache_pspecs``: the
-                  assigned shapes and the decode caches' partition specs
+  shapes.py       ``SHAPES``, ``cell_supported``, ``cache_pspecs``,
+                  ``input_specs`` / ``Cell``: the assigned shapes, the
+                  decode caches' partition specs and the dry run's inputs
+  cost_analysis.py  what a traced step costs (FLOPs, bytes, the
+                  collectives priced per device) and its roofline at the
+                  H100's data-sheet rates; the kernels' work formulas
+  dryrun.py       the production dry run on a fake 256- or 512-rank
+                  layout (``python -m repro_torch.launch.dryrun``)
   shard_index.py  the sharded corpus index: ``shard_corpus_state``,
                   ``local_topk``, ``merge_topk``, ``ShardedSearch``
                   (distributed path over a group, host loop otherwise)
   gram.py         the distributed Gram / exact 1-NN job
-                  (``python -m repro_torch.launch.gram``)
+                  (``python -m repro_torch.launch.gram``, ``--dryrun``)
   cluster.py      the distributed barycenter job
-                  (``python -m repro_torch.launch.cluster``)
+                  (``python -m repro_torch.launch.cluster``, ``--dryrun``)
 
   serve.py        the LM / Whisper greedy decode loop (``serve``,
                   ``generate``, ``python -m repro_torch.launch.serve``)
@@ -38,6 +44,6 @@
                   (``train``, ``python -m repro_torch.launch.train``)
 
 The jobs run under ``python -m torch.distributed.run`` (``--backend
-nccl|gloo``) or as one rank without it. The XLA compile probes
-(``dryrun``, ``shapes.input_specs`` / ``Cell``) are not here yet.
+nccl|gloo``) or as one rank without it; ``mesh.fake_world`` makes this
+process one rank of a group that exists nowhere, for the dry runs.
 """

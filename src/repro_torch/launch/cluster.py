@@ -13,13 +13,24 @@ barycenter per row; the loop per row keeps each row's arithmetic
 independent of the stripe, so any group size gives the one-rank result
 bit for bit. The weight grid (a T / 8 corridor here, as in the
 reference) is fitted once per job. Without a group the job runs as one
-rank (the reference's 1 x 1 host mesh). The reference's ``--dryrun`` has
-no counterpart here.
+rank (the reference's 1 x 1 host mesh).
+
+``dryrun`` (``--dryrun [--multi-pod]``) counts one rank's work on the
+256- or 512-rank production layout, as ``launch/gram.py``'s does (the
+kernels are bound through ``ctypes``, which fake tensors cannot pass):
+each Adam step of each of the rank's centroid rows is one paired soft
+forward with its stash (K8) and one reverse sweep (K9) against the N
+members, over the plan's cells a pair, at the per-cell work of
+``launch.cost_analysis`` (``soft_fwd_flops`` / ``soft_bwd_flops``).
+Bytes are the rank's rows, the members and the weights read once and its
+centroids and losses written once; the temporary is one step's stash,
+(active tiles x S^2) float32 values a pair.
 
   PYTHONPATH=src python -m repro_torch.launch.cluster --k 8 --n 64 \\
       --t 64 --device cpu
   python -m torch.distributed.run --standalone --nproc_per_node 2 \\
       -m -- repro_torch.launch.cluster --backend gloo --out /tmp/cluster
+  PYTHONPATH=src python -m repro_torch.launch.cluster --dryrun
 """
 from __future__ import annotations
 
@@ -79,6 +90,28 @@ def run(k: int = 8, n: int = 64, t: int = 64, gamma: float = 0.1,
     return Z.cpu().numpy(), loss.cpu().numpy()
 
 
+def dryrun(k: int = 512, n: int = 2048, t: int = 128, gamma: float = 0.1,
+           steps: int = 30, layout=None) -> dict:
+    """One rank's counted work of the job over ``layout`` (one rank
+    without one), the reference's dry-run keys: see the module
+    docstring."""
+    from repro_torch.launch import cost_analysis as ca
+    size = 1 if layout is None else layout.size(layout.axes)
+    k = -(-k // size) * size
+    rows = k // size
+    eng = engine_for("spdtw", weights=corridor(t), gamma=gamma, device="cpu")
+    per_pair = int(eng.measure.visited_cells)
+    pairs = rows * n * steps
+    flops = pairs * per_pair * (ca.soft_fwd_flops(1) + ca.soft_bwd_flops(1))
+    stash = n * eng.bsp.n_active * eng.bsp.tile ** 2 * 4
+    return {"mode": "cluster", "flops_per_device": float(flops),
+            "bytes_per_device": float((rows * t + n * t + rows * n) * 4
+                                      + (rows * t + rows) * 4),
+            "temp_bytes": stash, "devices": size, "centroids": k,
+            "steps": steps, "cells_per_pair": per_pair,
+            "cells_per_device": pairs * per_pair}
+
+
 def main(argv=None) -> None:
     """CLI entry: ``python -m repro_torch.launch.cluster [--k K] [--n N]
     [--t T] [--gamma G] [--steps S] [--device cpu]``; under
@@ -97,7 +130,16 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None,
                     help="directory for the result and the ranks' launch "
                          "counts")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="count one rank's work on the production layout")
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
+    if args.dryrun:
+        with mesh.fake_world(512 if args.multi_pod else 256):
+            print(json.dumps(dryrun(args.k, args.n, args.t, args.gamma,
+                                    args.steps, mesh.make_production_mesh(
+                                        multi_pod=args.multi_pod))))
+        return
     device = mesh.init_group(args.backend, args.device) \
         if args.backend else args.device
     try:

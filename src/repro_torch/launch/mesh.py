@@ -22,10 +22,11 @@ counterpart of the reference's 1 x 1 host mesh; its jobs run the same
 code with nothing to gather.
 
 ``Layout`` is the counterpart of the mesh itself (``make_mesh``;
-``make_host_mesh`` builds the (data, model) one): the default group's ranks laid out row-major over
-named axes, as ``jax.make_mesh`` orders its devices, with one subgroup
-per slice of every set of axes. The multi-rank LM trainer places its
-parameters and batch rows by it. gloo takes CUDA tensors in every
+``make_host_mesh`` builds the (data, model) one, ``make_production_mesh``
+the 16 x 16 and 2 x 16 x 16 ones): the default group's ranks laid out
+row-major over named axes, as ``jax.make_mesh`` orders its devices, with
+one subgroup per slice of every set of axes. The multi-rank LM trainer
+places its parameters and batch rows by it. gloo takes CUDA tensors in every
 collective the trainer calls (``tools/gloo_cuda_probe.py``: torch 2.11
 on an H100), so they are passed as they are, on either backend.
 
@@ -43,6 +44,7 @@ one.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -273,6 +275,35 @@ def make_host_mesh(data: int = 1, model: int = 1) -> Layout:
     return Layout((data, model), ("data", "model"))
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Layout:
+    """The production layout over the default group (the reference's
+    ``make_production_mesh``): 16 x 16 ranks over ("data", "model"), or
+    2 x 16 x 16 over ("pod", "data", "model") with ``multi_pod``. The
+    group must have 256 or 512 ranks: a real job's, or a fake one
+    (``fake_world``) for the dry run."""
+    if multi_pod:
+        return Layout((2, 16, 16), ("pod", "data", "model"))
+    return Layout((16, 16), ("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int = 0):
+    """This process as rank ``rank`` of a default group of ``n`` ranks that
+    exist nowhere: torch's "fake" backend, whose collectives return at
+    once and move nothing (the dry run's stand-in for a cluster). The
+    group is destroyed on exit, whatever happens inside; a group already
+    open raises."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already open")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def all_reduce_(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """``t`` reduced in place over ``group`` ("sum" or "max"); the
     identity for a group of one (None)."""
@@ -305,6 +336,26 @@ def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim)
+
+
+def reduce_scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's ``t`` (equal shapes) summed, and this rank's block of
+    the sum along ``dim`` (rank k of n: rows [k L / n, (k + 1) L / n)),
+    contiguous; ``t`` for a group of one. Off dimension 0 the tensor is
+    copied to ``dim``-major order and back, size-1 dimensions or not, so
+    the work does not depend on them."""
+    if group is None:
+        return t
+
+    def moved(x, a, b):
+        return x if a == b else x.movedim(a, b).clone(
+            memory_format=torch.contiguous_format)
+
+    src = moved(t.contiguous(), dim, 0)
+    out = src.new_empty((src.shape[0] // dist.get_world_size(group),)
+                        + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return moved(out, 0, dim)
 
 
 # ------------------------------------------- tensor-parallel collectives

@@ -1,6 +1,5 @@
-"""The assigned input shapes and the decode caches' partition specs (the
-port of ``repro.launch.shapes``; its ``input_specs`` / ``Cell``, the
-dry-run's abstract inputs, are not here yet).
+"""The assigned input shapes, the decode caches' partition specs and the
+dry run's inputs (the port of ``repro.launch.shapes``).
 
   train_4k     seq 4096,   batch 256  -> train_step
   prefill_32k  seq 32768,  batch 32   -> prefill
@@ -15,11 +14,27 @@ where they divide it, and at batch 1 the sequence (or a Mamba state's
 d_inner) over ("data", "model"). ``lm.init_cache`` / ``whisper.
 init_cache`` keep each rank's block of it, and ``decode_step`` merges the
 ranks' attention over the axes the sequence is split on.
+
+``input_specs`` resolves an (architecture x shape) cell over a rank
+layout to a ``Cell``: the inputs the port's step takes, made as empty
+tensors on the current device (fake ones under ``FakeTensorMode``, the
+dry run's case), with each leaf's global shape, dtype, partition spec and
+this rank's block shape (``Cell.leaves``), and the cell's ``seq_len``,
+``batch`` and ``tokens_per_step``, as the reference's ``input_specs``
+gives them.
+Token ids are int64 (torch's index dtype) where the reference's are
+int32. The port's entry points take the global batch of tokens, patches
+and frames and cut this rank's rows themselves (``lm.Ctx.rows``), so
+those arguments are whole; the decode cache is this rank's block
+(``init_cache(..., layout=)``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, NamedTuple, Tuple, Union
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -89,3 +104,97 @@ def cache_pspecs(cfg: ModelConfig, B: int,
         else:
             specs.append({})
     return specs
+
+
+class Leaf(NamedTuple):
+    """One input leaf of a cell: its global shape and dtype, its partition
+    spec and the shape of this rank's block under it."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: tuple
+    local: Tuple[int, ...]
+
+
+@dataclasses.dataclass
+class Cell:
+    """One (architecture x shape) cell's inputs over a layout: ``args``
+    the step's inputs (the batch; or token, cache, pos), ``leaves``
+    {path: Leaf} of every tensor in ``args`` ("0/tokens", "1/3/k": keys
+    and list positions joined by "/")."""
+    kind: str             # train | prefill | decode
+    args: tuple
+    leaves: Dict[str, Leaf]
+    seq_len: int
+    batch: int
+    tokens_per_step: int
+
+
+def tree_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """{path: leaf} of a pytree of dicts, lists and tuples, the keys and
+    positions joined by "/" (the same paths for the reference's trees)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(tree_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: str, layout=None, api=None) -> Cell:
+    """The cell's inputs over ``layout`` (a ``launch.mesh.Layout``, None
+    for one rank), made on the current device; ``api`` (``models.build
+    (cfg)``) is needed for a decode cell's cache."""
+    from repro_torch.launch.mesh import local_shape
+    S, B, kind = SHAPES[shape]
+    sizes = {} if layout is None else axis_sizes(layout)
+    dp = _dp(sizes)
+    b = (_entry(dp) if B % math.prod(sizes.get(a, 1) for a in dp) == 0
+         else None)
+
+    def leaf(shp, dtype, spec):
+        return Leaf(tuple(shp), dtype, tuple(spec),
+                    local_shape(shp, spec, layout))
+
+    if kind in ("train", "prefill"):
+        s_text = S - cfg.n_patches if cfg.family == "vlm" else S
+        batch, leaves = {}, {}
+        if cfg.family == "vlm":
+            batch["patches"] = ((B, cfg.n_patches, cfg.d_model),
+                                torch.bfloat16, (b, None, None))
+        if cfg.family == "audio":
+            batch["frames"] = ((B, cfg.n_frames, cfg.d_model),
+                               torch.bfloat16, (b, None, None))
+        batch["tokens"] = ((B, s_text + (kind == "train")), torch.long,
+                           (b, None))
+        for k, (shp, dt, spec) in batch.items():
+            leaves[f"0/{k}"] = leaf(shp, dt, spec)
+        args = ({k: torch.empty(shp, dtype=dt)
+                 for k, (shp, dt, _) in batch.items()},)
+        return Cell(kind, args, leaves, S, B, B * S)
+
+    if api is None:
+        raise ValueError("a decode cell needs the model's api for its cache")
+    whole = tree_paths(api.init_cache(B, S, device="meta"), "1")
+    specs = cache_pspecs(cfg, B, sizes)
+    cache = api.init_cache(B, S, device=torch.get_default_device(),
+                           layout=layout)
+    leaves = {"0": leaf((B, 1), torch.long, (b, None))}
+    for (path, t), spec in zip(whole.items(), _spec_leaves(specs)):
+        leaves[path] = leaf(t.shape, t.dtype, spec)
+    leaves["2"] = leaf((), torch.long, ())
+    args = (torch.empty((B, 1), dtype=torch.long), cache,
+            torch.zeros((), dtype=torch.long))
+    return Cell("decode", args, leaves, S, B, B)
+
+
+def _spec_leaves(specs) -> list:
+    """The spec tuples of ``cache_pspecs``, in ``tree_paths`` order."""
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in _spec_leaves(v)]
+    if isinstance(specs, list):
+        return [s for v in specs for s in _spec_leaves(v)]
+    return [tuple(specs)]

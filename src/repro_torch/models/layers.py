@@ -8,6 +8,19 @@ sliding-window locality is a mask on the same loop. The arithmetic keeps
 the reference's dtypes step by step: ``q * scale`` in the input dtype,
 scores and accumulators in float32, probabilities cast to V's dtype before
 the second product, the additive ``NEG_INF`` mask.
+
+``FLAGS`` are the reference's trace-time flags, read when a model is
+called (the dry run, ``launch/dryrun.py``, sets them): ``flash`` (the
+attention without a cache through ``flash.flash_attention``, or
+``attention`` itself), ``remat_policy`` ("minimal" recomputes a whole
+group in the backward; "save_tp" keeps the outputs of the group's
+tensor-parallel all-reduces, ``launch.mesh.reduce_from``, so the
+recompute issues none), ``kv_chunk`` (overrides every attention's KV
+chunk) and ``mamba_chunk`` (the selective scan's chunk). The reference
+also has ``unroll_inner``, because XLA's cost analysis counts a loop body
+once and its probes unroll every inner scan; the port's loops are Python
+loops, which ``FlopCounterMode`` counts at every iteration, so it has no
+such flag. At their defaults the flags change nothing.
 """
 from __future__ import annotations
 
@@ -15,11 +28,23 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.launch.mesh import all_reduce_
 
 NEG_INF = -1.0e30
+
+FLAGS = {"mamba_chunk": 16, "kv_chunk": None, "flash": True,
+         "remat_policy": "minimal"}
+
+
+def set_probe_mode(on: bool, mamba_chunk: int = 512, kv_chunk: int = 4096):
+    """The dry run's cost probes: fewer, fatter attention and scan chunks
+    (the reference's ``set_probe_mode``); ``on=False`` restores the
+    defaults."""
+    FLAGS["mamba_chunk"] = mamba_chunk if on else 16
+    FLAGS["kv_chunk"] = kv_chunk if on else None
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -65,12 +90,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def scale_in(x: torch.Tensor, scale: float) -> torch.Tensor:
     """``x * scale`` in ``x``'s dtype with the scale first rounded to that
-    dtype, as jnp does with a Python scalar."""
-    return x * float(torch.tensor(scale, dtype=x.dtype))
+    dtype (on the host, whatever the default device), as jnp does with a
+    Python scalar."""
+    return x * float(torch.tensor(scale, dtype=x.dtype, device="cpu"))
 
 
 def kv_chunk_len(Skv: int, kv_chunk: int) -> int:
-    """The KV chunk: ``kv_chunk`` where it divides Skv, else one chunk."""
+    """The KV chunk: ``kv_chunk`` (``FLAGS["kv_chunk"]`` where set) where
+    it divides Skv, else one chunk."""
+    kv_chunk = FLAGS["kv_chunk"] or kv_chunk
     return kv_chunk if Skv % kv_chunk == 0 else Skv
 
 
@@ -163,13 +191,29 @@ def gated_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return h @ w_down
 
 
-def rematerialize(fn, *args):
+def _save_all_reduce(ctx, func, *args, **kwargs):
+    """The "save_tp" policy: an all-reduce's output is kept, everything
+    else recomputed."""
+    if func is torch.ops.c10d.allreduce_.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialize(fn, *args, save_tp: bool = False):
     """``fn(*args)``, its activations recomputed in the backward
     (``jax.checkpoint``) where autograd records it; a plain call
-    otherwise."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    otherwise. With ``save_tp`` the outputs of the all-reduces inside
+    ``fn`` are saved and the recompute reuses them."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if save_tp:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_save_tp_contexts)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _save_tp_contexts():
+    return create_selective_checkpoint_contexts(_save_all_reduce)
 
 
 def _chunk_nll(h, emb, t, m):

@@ -48,9 +48,9 @@ from repro_torch.pytree import tree_leaves, tree_map
 
 from .config import LayerSpec, ModelConfig
 from .flash import flash_attention
-from .layers import (acc_dtype, attention, chunk_bias, chunked_cross_entropy,
-                     gated_mlp, kv_chunk_len, online_softmax, rematerialize,
-                     rms_norm, rope, scale_in)
+from .layers import (FLAGS, acc_dtype, attention, chunk_bias,
+                     chunked_cross_entropy, gated_mlp, kv_chunk_len,
+                     online_softmax, rematerialize, rms_norm, rope, scale_in)
 from .mamba import init_mamba_state, mamba_decode_step, mamba_mixer
 from .moe import moe_ffn
 
@@ -258,6 +258,19 @@ def param_pspecs(cfg: ModelConfig):
     """The partition spec of every parameter leaf, as tuples (the
     reference's ``param_pspecs``)."""
     return map_schema(model_schema(cfg), lambda shp, sc, ps: tuple(ps))
+
+
+def abstract_params(cfg: ModelConfig, dtype=DTYPE, layout=None):
+    """Every parameter leaf as an empty tensor of this rank's block shape
+    under ``layout`` (the whole leaf without one), on the current device:
+    fake tensors under ``FakeTensorMode`` (the dry run), real ones
+    otherwise. Nothing is drawn (the reference's ``abstract_params``)."""
+    return abstract_from_schema(model_schema(cfg), dtype, layout)
+
+
+def abstract_from_schema(schema, dtype, layout=None):
+    return map_schema(schema, lambda shp, sc, ps: torch.empty(
+        local_shape(shp, ps, layout), dtype=dtype))
 
 
 # --------------------------------------------------------------------------
@@ -489,6 +502,15 @@ def _split_hd_attention(q, k, v, ctx: Ctx, causal: bool, window, scale):
     return o.reshape(B, S, Hq, v.shape[-1]).to(q.dtype)
 
 
+def attend(q, k, v, causal: bool, window=None, scale=None):
+    """Attention without a cache: ``flash.flash_attention`` (its
+    backward recomputes the probabilities), or ``layers.attention`` with
+    ``FLAGS["flash"]`` off."""
+    if FLAGS["flash"]:
+        return flash_attention(q, k, v, causal, window, 0, 1024, scale)
+    return attention(q, k, v, causal=causal, window=window, scale=scale)
+
+
 def _tp_mode(cfg: ModelConfig, ctx: Ctx) -> str:
     """How attention splits over the model ranks: the config's
     ``attn_shard``, or "replicated" at one rank."""
@@ -563,15 +585,14 @@ def _apply_attn(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
     elif mode == "heads":
         h0, hl = ctx.block(H, "n_heads")
         G = H // Hkv
-        o = flash_attention(q, _kv_for_heads(ctx.copy(k), h0, hl, G),
-                            _kv_for_heads(ctx.copy(v), h0, hl, G), True,
-                            spec.window, 0, 1024, None)
+        o = attend(q, _kv_for_heads(ctx.copy(k), h0, hl, G),
+                   _kv_for_heads(ctx.copy(v), h0, hl, G), True, spec.window)
         piece = {"k": k, "v": v}
     elif mode == "head_dim":
         o = _split_hd_attention(q, k, v, ctx, True, spec.window, hd ** -0.5)
         piece = {"k": k, "v": v}
     else:
-        o = flash_attention(q, k, v, True, spec.window, 0, 1024, None)
+        o = attend(q, k, v, True, spec.window)
         piece = {"k": k, "v": v}
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
     if mode != "replicated":
@@ -667,7 +688,7 @@ def _apply_mla(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, krope_in[:, :, None, :].expand(B, S, Hl, rhd)],
                   dim=-1)
-    o = flash_attention(q, k, v, True, None, 0, 1024, (hd + rhd) ** -0.5)
+    o = attend(q, k, v, True, None, (hd + rhd) ** -0.5)
     out = torch.einsum("bshv,hvd->bsd", o.to(x.dtype), p["wo"])
     return x + ctx.reduce(out), {"ckv": ckv, "krope": krope}
 
@@ -700,6 +721,35 @@ def _apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx = NO_CTX):
     return out, aux
 
 
+def _mamba_state_in(cache, ctx: Ctx, cspec):
+    """(h, conv) of a Mamba decode cache for the step over the model
+    ranks: the cache's blocks where its d_inner is split as the weights'
+    is; where it is split wider (batch 1, d_inner over ("data", "model"),
+    the reference's long-context placement) the whole state is gathered
+    over the state's ranks and this rank's model block taken."""
+    group, n, _ = ctx.split_of(cspec, 2)
+    h, conv = cache["h"], cache["conv"]
+    if n == ctx.tp:
+        return h, conv
+    h, conv = all_gather_dim(h, group, 1), all_gather_dim(conv, group, 2)
+    h0, hl = ctx.block(h.shape[1], "d_inner")
+    return h[:, h0:h0 + hl], conv[:, :, h0:h0 + hl]
+
+
+def _mamba_state_out(h, conv, ctx: Ctx, cspec):
+    """The new state's blocks for the cache (``_mamba_state_in``'s
+    inverse): where the cache splits d_inner wider than the weights, the
+    model ranks' blocks gathered whole and this rank's block of the
+    cache's split cut."""
+    _, n, r = ctx.split_of(cspec, 2)
+    if n == ctx.tp:
+        return h, conv
+    h = all_gather_dim(h.contiguous(), ctx.tp_group, 1)
+    conv = all_gather_dim(conv.contiguous(), ctx.tp_group, 2)
+    step = h.shape[1] // n
+    return h[:, r * step:(r + 1) * step], conv[:, :, r * step:(r + 1) * step]
+
+
 def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
                  pos=None, ctx=None, cspec=None):
     """One layer: (x, cache piece, aux). In decode the piece is ``cache``,
@@ -715,13 +765,10 @@ def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
     elif spec.mixer == "mamba":
         xn = rms_norm(x, p["norm1"], cfg.norm_eps)
         if cache is not None and pos is not None:
-            if ctx.split_of(cspec, 2)[1] != ctx.tp:
-                raise ValueError(f"a Mamba state split over "
-                                 f"{ctx.split_of(cspec, 2)[1]} ranks, its "
-                                 f"weights over {ctx.tp}")
             out, (h, conv) = mamba_decode_step(
-                xn, p, (cache["h"], cache["conv"]), d_state=cfg.ssm_state,
-                tp_group=ctx.tp_group)
+                xn, p, _mamba_state_in(cache, ctx, cspec),
+                d_state=cfg.ssm_state, tp_group=ctx.tp_group)
+            h, conv = _mamba_state_out(h, conv, ctx, cspec)
             cache["h"].copy_(h)
             cache["conv"].copy_(conv)
             piece = cache
@@ -785,7 +832,8 @@ def forward_hidden(params, tokens, cfg: ModelConfig, patches=None,
     the same order on every rank. Under ``ctx``'s layout the tokens are
     this rank's rows, the MoE layers run expert-parallel and every leaf
     split over "model" is this rank's block; the hidden states are
-    whole on every model rank."""
+    whole on every model rank. Under ``FLAGS["remat_policy"] ==
+    "save_tp"`` the recompute reuses the group's all-reduced outputs."""
     ctx = NO_CTX if ctx is None else ctx
     x = _inputs(params, tokens, patches, ctx)
 
@@ -798,7 +846,8 @@ def forward_hidden(params, tokens, cfg: ModelConfig, patches=None,
 
     aux_t = torch.zeros((), dtype=torch.float32, device=x.device)
     for gps in unstack_groups(params["groups"]):
-        x, aux = rematerialize(group_body, x, gps)
+        x, aux = rematerialize(group_body, x, gps,
+                               save_tp=FLAGS["remat_policy"] == "save_tp")
         aux_t = aux_t + aux
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_t
 

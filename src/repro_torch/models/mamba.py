@@ -5,8 +5,11 @@ The selective scan h_t = Abar_t h_{t-1} + Bbar_t x_t is evaluated in
 chunks: inside a chunk an associative scan in the reference's own
 association (``associative_scan``, the recursive odd / even scheme of
 ``jax.lax.associative_scan``; a sequential loop would round differently),
-and across chunks a loop carrying h. The (B, S, d_inner, d_state)
-discretized tensors only materialize per chunk.
+and across chunks a loop carrying h. The chunks go through the scan a
+block at a time (``SCAN_BLOCK`` elements of the (B, S, d_inner, d_state)
+discretized tensors), each chunk's association unchanged: fewer, larger
+ops than one chunk at a time, the same values, and the discretized
+tensors never whole.
 
 Over the model ranks (``tp_group``, the model axis's group) d_inner is
 split: ``in_x``, ``in_z``, the conv, ``dt_up``, ``dt_bias``, ``A_log``
@@ -22,9 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.mesh import copy_to, reduce_from
+from .layers import FLAGS
 
-# the scan's chunk length (decode runs at chunk 1)
-CHUNK = 16
+# elements of one block of the scan's (B, chunk, d_inner, d_state) float32
+# tensors: the chunks of a block go through the associative scan at once
+SCAN_BLOCK = 1 << 24
 
 
 def _ssm_combine(e1, e2):
@@ -99,7 +104,7 @@ def _conv1d_causal(x, w, b, state=None):
 
 
 def mamba_mixer(x: torch.Tensor, p: dict, *, d_state: int,
-                chunk: int = CHUNK,
+                chunk: int | None = None,
                 h0: torch.Tensor | None = None,
                 conv0: torch.Tensor | None = None,
                 return_state: bool = False, tp_group=None):
@@ -110,8 +115,12 @@ def mamba_mixer(x: torch.Tensor, p: dict, *, d_state: int,
       dt_bias (di,), A_log (di, ds), D (di,), out (di, d)
 
     With ``return_state`` also returns (h (B, di, ds) float32, conv state
-    (B, dc-1, di)), this rank's block of d_inner under ``tp_group``.
+    (B, dc-1, di)), this rank's block of d_inner under ``tp_group``. The
+    scan's chunk is ``chunk``, by default ``layers.FLAGS["mamba_chunk"]``
+    (16; decode runs at 1).
     """
+    if chunk is None:
+        chunk = FLAGS["mamba_chunk"]
     B, S, d = x.shape
     di = p["in_x"].shape[1]
 
@@ -130,20 +139,30 @@ def mamba_mixer(x: torch.Tensor, p: dict, *, d_state: int,
     A = -torch.exp(p["A_log"].float())       # (di, ds)
 
     ck = chunk if S % chunk == 0 else S
+    # chunks scanned at once: as many as keep a (B, ck, di, ds) float32
+    # block within SCAN_BLOCK elements
+    kb = max(1, min(S // ck, SCAN_BLOCK // (B * ck * di * d_state)))
     h = (x.new_zeros((B, di, d_state), dtype=torch.float32) if h0 is None
          else h0.float())
     ys = []
-    for c0 in range(0, S, ck):
-        xc, dtc = xs[:, c0:c0 + ck], dt[:, c0:c0 + ck]
-        bc, cc = Bt[:, c0:c0 + ck], Ct[:, c0:c0 + ck]
-        dtf = dtc.float()
-        abar = torch.exp(dtf[..., None] * A)                 # (B,ck,di,ds)
-        bbar = (dtf[..., None] * bc[:, :, None, :].float()
+    for b0 in range(0, S, ck * kb):
+        n = min(kb, (S - b0) // ck)
+
+        def chunks(t):       # (B, n * ck, ...) -> (B, n, ck, ...)
+            return t[:, b0:b0 + n * ck].reshape((B, n, ck) + t.shape[2:])
+
+        xc, dtf, bc, cc = chunks(xs), chunks(dt).float(), chunks(Bt), \
+            chunks(Ct)
+        abar = torch.exp(dtf[..., None] * A)               # (B,n,ck,di,ds)
+        bbar = (dtf[..., None] * bc[..., None, :].float()
                 * xc[..., None].float())
-        aa, bb = associative_scan(_ssm_combine, (abar, bbar), axis=1)
-        hs = aa * h[:, None] + bb                            # (B,ck,di,ds)
-        ys.append(torch.einsum("bcds,bcs->bcd", hs, cc.float()))
-        h = hs[:, -1]
+        aa, bb = associative_scan(_ssm_combine, (abar, bbar), axis=2)
+        hs = []
+        for k in range(n):                 # the carry, chunk after chunk
+            hs.append(aa[:, k] * h[:, None] + bb[:, k])    # (B,ck,di,ds)
+            h = hs[-1][:, -1]
+        ys.append(torch.einsum("bncds,bncs->bncd", torch.stack(hs, 1),
+                               cc.float()).reshape(B, n * ck, di))
     y = torch.cat(ys, dim=1)
     y = (y + xs.float() * p["D"]).to(x.dtype)
     out = reduce_from((y * F.silu(z)) @ p["out"], tp_group)

@@ -1,6 +1,5 @@
 """Uniform model API over the decoder-LM and encoder-decoder families (the
-port of ``repro.models.registry``; ``abstract_params``, the reference's
-dry-run member, is not here)."""
+port of ``repro.models.registry``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +13,7 @@ from . import lm, whisper
 class ModelAPI:
     cfg: ModelConfig
     init_params: Callable     # (generator, layout=None) -> params
+    abstract_params: Callable  # (dtype=bf16, layout=None) -> empty leaves
     param_pspecs: Callable    # () -> partition spec tuples, leaf for leaf
     train_loss: Callable      # (params, batch, ctx=None) -> float32 scalar
     prefill: Callable         # (params, batch, S_cache, ctx=None) -> (h, cache)
@@ -43,6 +43,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg,
             init_params=_init(whisper.init_params, cfg),
+            abstract_params=lambda dtype=whisper.DTYPE, layout=None:
+                whisper.abstract_params(cfg, dtype, layout),
             param_pspecs=lambda: whisper.param_pspecs(cfg),
             train_loss=lambda p, b, ctx=None: whisper.train_loss(
                 p, b, cfg, ctx),
@@ -58,6 +60,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init_params=_init(lm.init_params, cfg),
+        abstract_params=lambda dtype=lm.DTYPE, layout=None:
+            lm.abstract_params(cfg, dtype, layout),
         param_pspecs=lambda: lm.param_pspecs(cfg),
         train_loss=lambda p, b, ctx=None: lm.train_loss(p, b, cfg, ctx),
         prefill=lambda p, b, S, ctx=None: _with(

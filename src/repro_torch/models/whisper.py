@@ -6,11 +6,11 @@ n_frames, d). The backbone: a bidirectional encoder, a causal decoder
 with cross-attention, GELU MLPs (the tanh approximation, ``jax.nn.gelu``'s
 default), RoPE in place of learned positions. The parameter names and
 stacked layout are the reference's. Attention without a cache goes
-through ``flash.flash_attention``; ``encode`` recomputes each encoder
-layer in the backward, and ``train_loss`` each decoder layer. Over the
-model ranks (an ``lm.Ctx``) the encoder, decoder and cross attention split
-their heads, the MLP its ff dimension and the embedding its vocabulary,
-as the reference's specs say.
+through ``lm.attend`` (``flash.flash_attention``); ``encode`` recomputes
+each encoder layer in the backward, and ``train_loss`` each decoder
+layer. Over the model ranks (an ``lm.Ctx``) the encoder, decoder and
+cross attention split their heads, the MLP its ff dimension and the
+embedding its vocabulary, as the reference's specs say.
 """
 from __future__ import annotations
 
@@ -18,13 +18,13 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .flash import flash_attention
 from .layers import (attention, chunked_cross_entropy, rematerialize,
                      rms_norm, rope)
 from repro_torch.launch.mesh import all_gather_dim, local_shape
 
-from .lm import (DTYPE, NO_CTX, _cut_piece, as_pos, act_dtype,
-                 block_valid_rows, embed_tokens, group_slice,
+from .lm import (DTYPE, NO_CTX, _cut_piece, abstract_from_schema, as_pos,
+                 act_dtype, attend, block_valid_rows, embed_tokens,
+                 group_slice,
                  init_from_schema, logits_of, map_schema,
                  merged_decode_attention, positions_at, stack_schema,
                  unstack_groups, valid_rows, write_block_row, write_rows)
@@ -77,6 +77,12 @@ def param_pspecs(cfg: ModelConfig):
     return map_schema(whisper_schema(cfg), lambda shp, sc, ps: tuple(ps))
 
 
+def abstract_params(cfg: ModelConfig, dtype=DTYPE, layout=None):
+    """Empty leaves of this rank's block shapes on the current device
+    (``lm.abstract_params``)."""
+    return abstract_from_schema(whisper_schema(cfg), dtype, layout)
+
+
 def _self_attn(x, p, causal, positions, prefix="", kv_override=None,
                cache=None, pos=None, ctx=NO_CTX, cspec=None):
     """Shared attention block; ``kv_override`` is the encoder memory
@@ -120,7 +126,7 @@ def _self_attn(x, p, causal, positions, prefix="", kv_override=None,
             h0, hl = ctx.block(o.shape[2], "n_heads")
             o = o[:, :, h0:h0 + hl]
     else:
-        o = flash_attention(q, k, v, causal, None, 0, 1024, None)
+        o = attend(q, k, v, causal)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p[prefix + "wo"])
     return x + ctx.reduce(out.to(x.dtype)), cache
 

@@ -28,8 +28,10 @@ Under a rank layout each rank's parameters are its own blocks
 where the leaf lives: an expert's m, v and master exist only on the rank
 that owns the expert, as the reference's ``init`` of sharded parameters
 places them. ``state_pspecs`` gives the state's partition specs as
-tuples, with the reference's ZeRO-1 rule; a runtime ZeRO-1 (state split
-over "data" where the parameter is not) is not here.
+tuples, with the reference's ZeRO-1 rule; the state split over "data"
+where the parameter is not runs in ``make_train_step(...,
+accum_pspecs=)`` (ZeRO-2), whose state is ``init`` of the rank's blocks
+(``train_step.zero_blocks``).
 """
 from __future__ import annotations
 

@@ -46,6 +46,19 @@ leaf's squares from its ranks and a replicated leaf's once.
 
 Without a layout every rank is on its own (one device).
 
+``accum_pspecs`` (the reference's ZeRO-2 path; specs leaf for leaf with
+the parameters, ``AdamW.state_pspecs(..., zero1=True, ...).m``) keeps
+the gradients in float32 accumulators split over "data" where the specs
+add "data" to a leaf's own spec: each slice's gradients are
+reduce-scattered over the data ranks in their dtype (and summed over a
+pod axis after), added to the rank's block, and divided by m n as
+above; the leaves the specs leave as they are take the plain sync. The
+optimizer state is the blocks' (``opt.init(zero_blocks(...))``, placed
+as ``state_pspecs(zero1=True)`` places it): each rank updates its block
+of every such leaf, and the parameter is all-gathered back over the data
+ranks. It takes the per-microbatch sync without compression; without
+``accum_pspecs`` nothing of it runs.
+
 ``make_serve_step`` and ``make_prefill`` run under
 ``torch.inference_mode()``, under a layout on this rank's blocks of the
 parameters and of the cache (``launch.shapes.cache_pspecs``).
@@ -56,11 +69,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.launch.mesh import all_reduce_, sharded_dims, spec_axes
+from repro_torch.launch.mesh import (all_gather_dim, all_reduce_,
+                                     reduce_scatter_dim, sharded_dims,
+                                     spec_axes)
 from repro_torch.models.lm import Ctx
 from repro_torch.pytree import tree_leaves, tree_map
 
-from .optimizer import AdamW, BLOCK
+from .optimizer import AdamW, BLOCK, _map_specs
 
 GRAD_SYNCS = ("per_microbatch", "deferred")
 COMPRESSIONS = (None, "int8", "int8_pod")
@@ -134,21 +149,82 @@ def _slices(batch, m: int):
              for k, v in batch.items()} for i in range(m)]
 
 
+def zero_dims(pspecs, accum_pspecs) -> list:
+    """Per parameter leaf (in leaf order), the dimension its ``accum_
+    pspecs`` entry splits over "data" where its own spec does not; None
+    where the two agree."""
+    out = []
+
+    def one(ps, acc):
+        ps, acc = tuple(ps), tuple(acc)
+        dims = [d for d, e in enumerate(acc)
+                if e is not None and "data" in ((e,) if isinstance(e, str)
+                                                else e)
+                and "data" not in spec_axes(ps[d:d + 1])]
+        out.append(dims[0] if dims else None)
+
+    _map_specs(one, pspecs, accum_pspecs)
+    return out
+
+
+def zero_blocks(params, pspecs, accum_pspecs, layout):
+    """This rank's block of each parameter leaf along its ZeRO dimension
+    (``zero_dims``; rank k of the n data ranks: rows [k L / n, (k + 1) L
+    / n)), a contiguous copy, the leaf itself where there is none: what
+    the ZeRO-2 step's optimizer state is made from (``opt.init``)."""
+    dims = iter(zero_dims(pspecs, accum_pspecs))
+    n = 1 if layout is None or "data" not in layout.axes else \
+        layout.size("data")
+    k = 0 if n == 1 else layout.index("data")
+
+    def cut(p):
+        d = next(dims)
+        if d is None or n == 1:
+            return p
+        step = p.shape[d] // n
+        return p.narrow(d, k * step, step).contiguous()
+
+    return tree_map(cut, params)
+
+
+def zero_update(opt: AdamW, grads, opt_state, params, pspecs, accum_pspecs,
+                layout):
+    """The ZeRO-2 step's update: ``opt.update_`` on this rank's blocks
+    (``zero_blocks``) with the gradient blocks ``grads``, then each
+    parameter all-gathered back over the data ranks, in place. Returns
+    (params, new optimizer state)."""
+    blocks = zero_blocks(params, pspecs, accum_pspecs, layout)
+    _, new_opt = opt.update_(grads, opt_state, blocks)
+    group = (layout.group("data") if layout is not None
+             and "data" in layout.axes else None)
+    for p, blk, d in zip(tree_leaves(params), tree_leaves(blocks),
+                         zero_dims(pspecs, accum_pspecs)):
+        if d is not None and blk is not p:
+            p.copy_(all_gather_dim(blk, group, d))
+    return params, new_opt
+
+
 def make_train_step(api, opt: AdamW, *, microbatch: int = 1,
                     grad_compression: Optional[str] = None,
-                    grad_sync: str = "per_microbatch", layout=None):
+                    grad_sync: str = "per_microbatch", layout=None,
+                    accum_pspecs=None):
     """One training step of ``api`` under ``opt``, data-parallel over
     ``layout``'s data axes when one is given (see the module docstring).
     The parameters and the optimizer state are updated in place
     (``AdamW.update_``, as the reference donates them) and returned.
     ``step.grads(params, batch)`` is the step's (loss, synced gradients)
-    without the update."""
+    without the update. With ``accum_pspecs`` the step is ZeRO-2's and
+    ``opt_state`` must be ``opt.init(zero_blocks(...))``'s."""
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
     if grad_sync not in GRAD_SYNCS:
         raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}")
     if grad_compression not in COMPRESSIONS:
         raise ValueError(f"grad_compression must be one of {COMPRESSIONS}")
+    if accum_pspecs is not None and (grad_sync != "per_microbatch"
+                                     or grad_compression is not None):
+        raise ValueError("accum_pspecs takes the per-microbatch sync "
+                         "without compression")
     ctx = Ctx(layout)
     pspecs = api.param_pspecs()
     dp = tuple(a for a in ctx.dp if layout is not None and a in layout.axes)
@@ -232,8 +308,58 @@ def make_train_step(api, opt: AdamW, *, microbatch: int = 1,
         new_params, new_opt = opt.update_(grads, opt_state, params)
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
-    step.grads = grads_of
-    return step
+    if accum_pspecs is None:
+        step.grads = grads_of
+        return step
+
+    zdims = zero_dims(pspecs, accum_pspecs)
+    data = layout is not None and "data" in layout.axes
+    data_group = layout.group("data") if data else None
+
+    def grads_zero(params, batch):
+        """(mean loss, float32 gradient blocks in leaf order): each
+        slice's gradients reduce-scattered over "data" into the blocks,
+        or synced whole (``sync``) where a leaf has no ZeRO dimension."""
+        specs = leaf_specs(params, pspecs)
+        acc, ltot = None, None
+        for sl in _slices(batch, microbatch):
+            loss, g = value_and_grad(api, params, ctx.rows(sl), ctx)
+            parts = []
+            for t, spec, d in zip(tree_leaves(g), specs, zdims):
+                if d is None:
+                    names = tuple(a for a in dp if a not in spec_axes(spec))
+                    if names and layout.size(names) > 1:
+                        all_reduce_(t, layout.group(names))
+                    parts.append(t)
+                    continue
+                blk = reduce_scatter_dim(t, data_group, d)
+                rest = tuple(a for a in dp if a != "data"
+                             and a not in spec_axes(spec))
+                if rest and layout.size(rest) > 1:
+                    all_reduce_(blk, layout.group(rest))
+                parts.append(blk)
+            del g
+            if acc is None:
+                acc = [torch.zeros(t.shape, dtype=torch.float32,
+                                   device=t.device) for t in parts]
+            for a, t in zip(acc, parts):
+                a.add_(t.to(torch.float32))
+            ltot = loss if ltot is None else ltot + loss
+        for a in acc:
+            a.div_(microbatch * n_dp)
+        return mean_loss(ltot / microbatch, dp), acc
+
+    def step_zero(params, opt_state, batch):
+        loss, acc = grads_zero(params, batch)
+        it = iter(acc)
+        grads = tree_map(lambda _: next(it), params)
+        gnorm = grad_norm(grads, leaf_specs(grads, accum_pspecs), layout)
+        _, new_opt = zero_update(opt, grads, opt_state, params, pspecs,
+                                 accum_pspecs, layout)
+        return params, new_opt, {"loss": loss, "grad_norm": gnorm}
+
+    step_zero.grads = grads_zero
+    return step_zero
 
 
 def make_serve_step(api, layout=None):

@@ -216,7 +216,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "import repro_torch.models.whisper, repro_torch.models.registry;"
             "import repro_torch.models.flash, repro_torch.models.moe;"
             "import repro_torch.models.mamba, repro_torch.train.train_step;"
-            "import repro_torch.launch.serve;"
+            "import repro_torch.launch.serve, repro_torch.launch.dryrun;"
+            "import repro_torch.launch.cost_analysis;"
+            "import repro_torch.classify.protocol;"
             "import chip_smoke;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"

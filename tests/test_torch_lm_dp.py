@@ -24,6 +24,11 @@ sync and the int8 all-reduce.
   model) layout the plain step equal to the (data, model) one and
   ``int8_pod`` (which raises in the reference under jax 0.9.0) within the
   bound of the pods' uncompressed sum.
+- ``make_train_step(..., accum_pspecs=state_pspecs(zero1=True).m)``, the
+  ZeRO-2 step (gradients reduce-scattered into float32 blocks, the
+  optimizer state split over "data"), at microbatch 2 on two ranks: its
+  loss and every new parameter equal to the same step without it, bit
+  for bit (a sum of two values rounds alike in either collective).
 """
 import json
 
@@ -196,6 +201,15 @@ def test_int8_pod_sums_the_pods_within_the_quantization_bound(run):
         bound = float(amax[k]) / 127.0
         assert err <= bound * (1 + 1e-5) + 1e-7 * float(np.abs(e).max()), (
             k, err, bound)
+
+
+def test_zero2_step_equals_the_plain_step(run):
+    plain, zero = run["out"][150], run["out"][151]
+    assert np.array_equal(plain[".loss"], zero[".loss"])
+    params = under(plain, ".params")
+    assert params
+    for k, v in params.items():
+        assert np.array_equal(zero[".params" + k], v), k
 
 
 def test_model_axis_raises_naming_the_next_item(tmp_path):

@@ -5,13 +5,18 @@ against the reference on a forced (2, 2) mesh (four host devices). Each
 data rank routes its own tokens (the capacity from its own rows) and
 holds half the experts, each model rank half of every expert's ff, so
 the one-device reference differs by whole expert rows here; the forced
-mesh computes the same shards.
+mesh computes the same shards. jamba-v0.1-52b's ranks also decode one
+row at batch 1, the cache's Mamba state split over ("data", "model"),
+wider than the weights' "model" split, against the same decode at one
+rank (``B1_DECODE_FRAC`` of the logits' RMS, float32).
 """
 import pytest
 
 from torch_dp_helpers import check_tp_grads, tp_run
 
 CASES = ("deepseek-v2-lite-16b", "jamba-v0.1-52b")
+# float32 sums over the model ranks in another order
+B1_DECODE_FRAC = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -28,3 +33,8 @@ def test_tp_ep_gradients_equal_reference_mesh(run, i, record_property):
 @pytest.mark.parametrize("case", CASES)
 def test_replicated_leaves_bit_equal_across_model_ranks(run, case):
     assert run["replicated"][case]["differ"] == [], run["replicated"][case]
+
+
+def test_batch1_decode_with_the_state_over_data_and_model(run):
+    assert run["replicated"]["jamba-v0.1-52b"]["b1_decode"] <= \
+        B1_DECODE_FRAC

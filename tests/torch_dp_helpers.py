@@ -139,7 +139,8 @@ def worst_frac(got: dict, want: dict, prefix: str = ""):
 # device, a fraction of each leaf's RMS: the one-rank port's measured
 # worst (jamba-v0.1-52b, tests/torch_train_helpers.py)
 GRAD_FRAC_DP = 1.2e-5
-DP_STEPS = (100, 101, 102, 111, 112, 120, 121, 122, 130, 140, 141)
+DP_STEPS = (100, 101, 102, 111, 112, 120, 121, 122, 130, 140, 141, 150,
+            151)
 
 
 def dp_run(arch, d, microbatches, others=()):
@@ -225,20 +226,17 @@ TP_BASE = 300
 
 def reference_weights(directory, archs):
     """The reference's seed-3 weights of each reduced architecture (as
-    ``torch_train_helpers.TrainCase`` draws them) written for the ranks
-    under ``directory/ARCH``: the float32 twin at step 0, bf16 at step 1.
-    Returns {arch: the reference's bf16 parameters}."""
+    ``torch_train_helpers.TrainCase`` draws them, shared with it) written
+    for the ranks under ``directory/ARCH``: the float32 twin at step 0,
+    bf16 at step 1. Returns {arch: the reference's bf16 parameters}."""
     import jax
     import jax.numpy as jnp
-    from repro.configs import get_config as jget_config
-    from repro.configs import reduced as jreduced
-    from repro.models import build as jbuild
     from repro_torch.convert import lm_params_from_reference
     from repro_torch.train.checkpoint import save_checkpoint
+    from torch_train_helpers import reference_params
     out = {}
     for arch in archs:
-        params = jbuild(jreduced(jget_config(arch))).init_params(
-            jax.random.PRNGKey(3))
+        params = reference_params(arch)
         f32 = jax.tree.map(lambda a: a.astype(jnp.float32), params)
         d = str(Path(directory) / arch)
         save_checkpoint(d, 0, {"params": lm_params_from_reference(
@@ -251,24 +249,11 @@ def reference_weights(directory, archs):
 
 def reference_f32_grads(arch, params):
     """The reference's one-device float32-twin loss and gradients of
-    ``train_loss`` on ``TokenPipeline(cfg, 4, 16, seed=1)``'s batch, as
-    {checkpoint path: array} with ".loss"."""
-    import jax
-    import jax.numpy as jnp
-    from repro.configs import get_config as jget_config
-    from repro.configs import reduced as jreduced
-    from repro.models import Ctx, build as jbuild
-    from repro.train.data import TokenPipeline as JPipeline
-    from torch_train_helpers import float32_reference
-    cfg = jreduced(jget_config(arch))
-    api = jbuild(cfg)
-    batch = {k: jnp.asarray(v) for k, v in
-             JPipeline(cfg, 4, 16, seed=1).batch_at(0).items()}
-    ctx = Ctx(None)
-    with float32_reference():
-        loss, g = jax.jit(jax.value_and_grad(
-            lambda p, b: api.train_loss(p, b, ctx)))(
-            jax.tree.map(lambda a: a.astype(jnp.float32), params), batch)
+    ``train_loss`` on ``TokenPipeline(cfg, 4, 16, seed=1)``'s batch (the
+    ones ``TrainCase`` holds, shared with it), as {checkpoint path:
+    array} with ".loss"."""
+    from torch_train_helpers import reference_grads
+    loss, g = reference_grads(arch, "f32", params)
     out = {".grads" + k: v for k, v in reference_leaves(g).items()}
     out[".loss"] = np.asarray(loss, np.float32)
     return out

@@ -35,7 +35,8 @@ from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.train.data import TokenPipeline
 from repro_torch.train.optimizer import AdamW, cosine_schedule
 from repro_torch.train.train_step import (int8_all_reduce, leaf_specs,
-                                          make_train_step, value_and_grad)
+                                          make_train_step, value_and_grad,
+                                          zero_blocks)
 
 B, S = 4, 16
 LR = (1e-3, 1, 4)        # cosine_schedule(base, warmup, total)
@@ -138,6 +139,22 @@ def job_dp(arch, weights, out):
                                   grad_compression=comp).grads(params, batch)
         save_checkpoint(out, step, {"grads": g, "loss": loss}, specs=gspecs,
                         layout=pods)
+    # ZeRO-2 (accum_pspecs: reduce-scattered float32 accumulators, the
+    # optimizer state split over "data") against the same step without
+    with torch.device("meta"):
+        shapes = api.abstract_params()
+    for step, zero in ((150, False), (151, True)):
+        params = params_from(api, weights, 0, layout, torch.float32)
+        opt = AdamW(lr=cosine_schedule(*LR))
+        acc = opt.state_pspecs(pspecs, zero1=True, shapes=shapes,
+                               data_size=size).m if zero else None
+        fn = make_train_step(api, opt, layout=layout, microbatch=2,
+                             accum_pspecs=acc)
+        state = opt.init(zero_blocks(params, pspecs, acc, layout)
+                         if zero else params)
+        new, _, met = fn(params, state, batch)
+        save(step, {"params": new, "loss": met["loss"],
+                    "gnorm": met["grad_norm"]}, pspec_out)
     # int8_all_reduce of N(0, 1) leaves, rank r drawing from seed r
     rng = np.random.default_rng(rank)
     tree = {"a": torch.as_tensor(rng.normal(size=(64,)).astype(np.float32)),
@@ -253,8 +270,37 @@ def job_tp(shape, weights, out, base, *cases):
         flags[case] = {"differ": replicated_equal(
             new, leaf_specs(new, pspecs), layout),
             "loss": float(met["loss"])}
+        if layout.size("data") > 1 and any(s.mixer == "mamba"
+                                           for s in cfg.pattern):
+            flags[case]["b1_decode"] = batch1_decode(
+                api, str(Path(weights) / case.split(":")[0]), layout)
     if mesh.world()[0] == 0:
         (Path(out) / f"replicated_{base}.json").write_text(json.dumps(flags))
+
+
+def batch1_decode(api, weights, layout, steps=6):
+    """A batch-1 decode of ``steps`` tokens of the decode prompt's first
+    row on ``layout``, whose cache splits the Mamba state's d_inner over
+    ("data", "model") wider than the weights' "model" split, against the
+    same decode at one rank in this process: the worst |logits - one
+    rank's| over the steps, a fraction of the one-rank logits' RMS."""
+    from repro_torch.models.lm import Ctx, init_cache
+    whole = params_from(api, weights, 0, None, torch.float32)
+    params = params_from(api, weights, 0, layout, torch.float32)
+    prompt = torch.as_tensor(decode_prompt(api.cfg))[:1]
+    caches = (init_cache(api.cfg, 1, 16, torch.float32, device="cpu"),
+              init_cache(api.cfg, 1, 16, torch.float32, device="cpu",
+                         layout=layout))
+    worst = 0.0
+    with torch.no_grad():
+        for pos in range(steps):
+            tok = prompt[:, pos:pos + 1]
+            one, _ = api.decode_step(whole, caches[0], tok, pos)
+            got, _ = api.decode_step(params, caches[1], tok, pos,
+                                     Ctx(layout))
+            rms = float(one.pow(2).mean().sqrt())
+            worst = max(worst, float((got - one).abs().max()) / rms)
+    return worst
 
 
 def job_tp_step(shape, weights, out, arch):

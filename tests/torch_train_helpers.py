@@ -20,6 +20,10 @@ Limits, each set from the readings noted beside it (the ten reduced
 models, ``B`` x ``S`` tokens of ``TokenPipeline(seed=1)``, on the CPU):
 """
 import contextlib
+import fcntl
+import os
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -128,11 +132,108 @@ def f32(tree):
     return jax.tree.map(lambda a: a.astype(jnp.float32), tree)
 
 
+# ------------------------------------------------ the shared reference
+# The reference's weights, gradients and steps are pure functions of the
+# architecture. Under pytest-xdist every worker of one run sees the same
+# ``PYTEST_XDIST_TESTRUNUID``; the first worker to need an entry computes
+# it under a file lock and writes it beside the others in the temporary
+# directory, and every other worker (of any test file) reads it, so each
+# reference compile runs once a run, not once a file.
+
+def _shared_dir():
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not uid:
+        return None
+    d = Path(tempfile.gettempdir()) / f"repro_torch_reference_{uid}"
+    d.mkdir(exist_ok=True)
+    return d
+
+
+def _to_numpy(a):
+    """A reference array as numpy, bfloat16 as its raw uint16 bits."""
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype == jnp.bfloat16 else a
+
+
+def shared(key, compute, bf16=()):
+    """``compute()`` (a dict of reference arrays), computed once per test
+    run across the xdist workers (``_shared_dir``) and once per process
+    without xdist. The entries named in ``bf16`` come back as bfloat16."""
+    d = _shared_dir()
+    if d is None:
+        return compute()
+    path = d / f"{key}.npz"
+    with open(d / f"{key}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            out = {k: _to_numpy(v) for k, v in compute().items()}
+            tmp = d / f"{key}.part.npz"
+            np.savez(tmp, **out)
+            os.replace(tmp, path)
+        with np.load(path) as z:
+            return {k: (z[k].view(jnp.bfloat16) if k in bf16 else z[k])
+                    for k in z.files}
+
+
+def _tree(treedef, arrays):
+    """The pytree ``treedef`` from the entries "0", "1", ... of a shared
+    dict."""
+    return jax.tree.unflatten(treedef, [jnp.asarray(arrays[str(i)])
+                                        for i in range(treedef.num_leaves)])
+
+
+def reference_params(arch):
+    """The reference's seed-3 bf16 weights of the reduced ``arch``."""
+    japi = jbuild(jreduced(jget_config(arch)))
+    treedef = jax.tree.structure(japi.abstract_params())
+
+    def draw():
+        leaves = jax.tree.leaves(japi.init_params(jax.random.PRNGKey(3)))
+        return {str(i): a for i, a in enumerate(leaves)}
+
+    got = shared(f"params_{arch}", draw,
+                 bf16={str(i) for i in range(treedef.num_leaves)})
+    return _tree(treedef, got)
+
+
+def reference_batch(arch):
+    """``TokenPipeline(cfg, B, S, seed=1)``'s first batch (numpy)."""
+    return JPipeline(jreduced(jget_config(arch)), B, S, seed=1).batch_at(0)
+
+
+def reference_grads(arch, kind, params=None):
+    """(loss, gradients) of the reference's ``train_loss`` at the seed-3
+    weights on ``reference_batch``: ``kind`` "bf16", or "f32", the float32
+    twin."""
+    japi = jbuild(jreduced(jget_config(arch)))
+    treedef = jax.tree.structure(japi.abstract_params())
+
+    def grads():
+        p = reference_params(arch) if params is None else params
+        jbatch = {k: jnp.asarray(v) for k, v in reference_batch(arch).items()}
+        ctx = Ctx(None)
+        vg = jax.jit(jax.value_and_grad(
+            lambda p, b: japi.train_loss(p, b, ctx)))
+        if kind == "bf16":
+            loss, g = vg(p, jbatch)
+        else:
+            with float32_reference():
+                loss, g = vg(f32(p), jbatch)
+        out = {str(i): a for i, a in enumerate(jax.tree.leaves(g))}
+        out["loss"] = loss
+        return out
+
+    got = shared(f"grads_{kind}_{arch}", grads,
+                 bf16={str(i) for i in range(treedef.num_leaves)}
+                 if kind == "bf16" else ())
+    return jnp.asarray(got["loss"]), _tree(treedef, got)
+
+
 class TrainCase:
     """One architecture at ``reduced`` size: the reference's weights
     (seed 3) and one ``TokenPipeline(seed=1)`` batch, the reference's loss
     and gradients in bf16 and on the float32 twin, and the port's model
-    on the same weights."""
+    on the same weights (the reference's parts through ``shared``)."""
 
     _made: dict = {}
 
@@ -148,15 +249,11 @@ class TrainCase:
         self.arch = arch
         cfg = jreduced(jget_config(arch))
         self.japi = jbuild(cfg)
-        self.params = self.japi.init_params(jax.random.PRNGKey(3))
-        self.batch = JPipeline(cfg, B, S, seed=1).batch_at(0)
+        self.params = reference_params(arch)
+        self.batch = reference_batch(arch)
         self.jbatch = {k: jnp.asarray(v) for k, v in self.batch.items()}
-        ctx = Ctx(None)
-        vg = jax.jit(jax.value_and_grad(
-            lambda p, b: self.japi.train_loss(p, b, ctx)))
-        self.ref = {"bf16": vg(self.params, self.jbatch)}
-        with float32_reference():
-            self.ref["f32"] = vg(f32(self.params), self.jbatch)
+        self.ref = {kind: reference_grads(arch, kind, self.params)
+                    for kind in ("bf16", "f32")}
         self.cfg = reduced(get_config(arch))
         self.api = build(self.cfg)
         self.tbatch = to_torch_batch(self.batch)
@@ -172,17 +269,27 @@ class TrainCase:
         """The reference's ``make_train_step(api, None, opt,
         microbatch=m, donate=False)`` on the float32 twin: (loss, grad
         norm, new params)."""
-        opt = JAdamW(lr=jcosine(*LR))
-        with float32_reference():
-            # not donated: the float32 twin's master copy is its params'
-            # own buffers (astype to the same dtype), which XLA cannot
-            # take twice
-            step = jmake_train_step(self.japi, None, opt,
-                                    microbatch=microbatch, donate=False)
-            p = f32(self.params)
-            new, _, met = step(p, opt.init(p), self.jbatch)
-            jax.block_until_ready(new)
-        return float(met["loss"]), float(met["grad_norm"]), new
+        treedef = jax.tree.structure(self.params)
+
+        def run():
+            opt = JAdamW(lr=jcosine(*LR))
+            with float32_reference():
+                # not donated: the float32 twin's master copy is its
+                # params' own buffers (astype to the same dtype), which
+                # XLA cannot take twice
+                step = jmake_train_step(self.japi, None, opt,
+                                        microbatch=microbatch,
+                                        donate=False)
+                p = f32(self.params)
+                new, _, met = step(p, opt.init(p), self.jbatch)
+                jax.block_until_ready(new)
+            out = {str(i): a for i, a in enumerate(jax.tree.leaves(new))}
+            out.update(loss=met["loss"], grad_norm=met["grad_norm"])
+            return out
+
+        got = shared(f"step_{microbatch}_{self.arch}", run)
+        return (float(got["loss"]), float(got["grad_norm"]),
+                _tree(treedef, got))
 
     def port_step(self, microbatch):
         opt = AdamW(lr=cosine_schedule(*LR))
