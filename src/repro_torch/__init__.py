@@ -50,7 +50,9 @@ answers batches, ``SearchEngine(None, refresh=store)`` adopts the
 snapshots a ``launch.learner.Learner`` publishes to a ``SnapshotStore``.
 
 ``convert`` carries a fitted reference engine's state (and centroid
-model) across, and a reference LM's parameters.
+model) across, and a reference LM's parameters. ``trace`` records spans
+and counters of ``fit``, the cascades and the SVM step, off unless
+``trace.enable()`` is called.
 
 The LM stack trains from ``repro_torch.launch.train.train(arch, ...)``
 (``python -m repro_torch.launch.train --arch yi-6b``) and serves from

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 # svm_predict forms its (test, class, train) products this many at a time
 _PREDICT_CHUNK = 1 << 24
 
@@ -65,13 +67,15 @@ def svm_predict(alphas: torch.Tensor, K_test: torch.Tensor, y,
     normal range count as zero, as in the reference's XLA
     (``core.krdtw.flush_subnormal``)."""
     from repro_torch.core.krdtw import flush_subnormal
-    ybins = _ybins(_labels(y, K_test.device), n_classes)
-    # decision_k(x) = sum_i a_ki ybin_ki K(x_i, x), test rows in blocks
-    coef = (alphas * ybins)[None, :, :]
-    rows = max(1, _PREDICT_CHUNK // max(1, coef.numel()))
-    dec = torch.cat([flush_subnormal(coef * K_test[s:s + rows, None, :])
-                     .sum(dim=2) for s in range(0, K_test.shape[0], rows)])
-    return torch.argmax(dec, dim=1)
+    with trace.span("svm_predict"):
+        ybins = _ybins(_labels(y, K_test.device), n_classes)
+        # decision_k(x) = sum_i a_ki ybin_ki K(x_i, x), test rows in blocks
+        coef = (alphas * ybins)[None, :, :]
+        rows = max(1, _PREDICT_CHUNK // max(1, coef.numel()))
+        dec = torch.cat([flush_subnormal(coef * K_test[s:s + rows, None, :])
+                         .sum(dim=2)
+                         for s in range(0, K_test.shape[0], rows)])
+        return torch.argmax(dec, dim=1)
 
 
 def svm_gram_series(X_train, X_test, *, kind: str = "sp_krdtw", sp=None,

@@ -34,10 +34,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from .dtw import band_mask
 from .measures import (CorpusIndex, Measure, _as_series, build_corpus_index,
                        make_measure)
-from .occupancy import BlockSparsePaths, SparsePaths, learn_sparse_paths
+from .occupancy import (BlockSparsePaths, SparsePaths, learn_sparse_paths,
+                        pairwise_path_counts)
 from .spec import KERNEL_FAMILIES, MeasureSpec
 
 _CASCADE_FAMILIES = ("dtw", "spdtw")   # admissible min-plus bounds exist
@@ -152,18 +154,21 @@ class SimilarityEngine:
         Kernel families return the negated log kernel, so every family
         is argmin-ready."""
         from repro_torch.kernels import ops
-        x, y = self._series(x), self._series(y)
-        f = self.family
-        if f == "dtw":
-            return ops._dtw_pairs(x, y, impl=impl)
-        if f == "dtw_sc":
-            return ops._dtw_pairs(x, y, impl=impl, radius=self.spec.radius)
-        if f == "spdtw":
-            return ops._spdtw_pairs(x, y, self.sp, bsp=self.bsp, impl=impl)
-        if f in KERNEL_FAMILIES:
-            return -ops._log_krdtw_pairs(x, y, self.spec.nu, impl=impl,
-                                         **self._kernel_args())
-        return ops._baseline_pairs(f, x, y, self.spec.lags)
+        with trace.span("pairs"):
+            x, y = self._series(x), self._series(y)
+            f = self.family
+            if f == "dtw":
+                return ops._dtw_pairs(x, y, impl=impl)
+            if f == "dtw_sc":
+                return ops._dtw_pairs(x, y, impl=impl,
+                                      radius=self.spec.radius)
+            if f == "spdtw":
+                return ops._spdtw_pairs(x, y, self.sp, bsp=self.bsp,
+                                        impl=impl)
+            if f in KERNEL_FAMILIES:
+                return -ops._log_krdtw_pairs(x, y, self.spec.nu, impl=impl,
+                                             **self._kernel_args())
+            return ops._baseline_pairs(f, x, y, self.spec.lags)
 
     def gram(self, A, B=None, *, impl: str = "auto", block_a: int = 64,
              thresholds=None, alive0=None) -> torch.Tensor:
@@ -195,10 +200,11 @@ class SimilarityEngine:
         from repro_torch.kernels import ops
         if not self.is_kernel:
             raise ValueError(f"{self.family} is not a kernel")
-        A = self._series(A)
-        B = self._corpus_or(B)
-        return ops._log_krdtw_gram(A, B, self.spec.nu, impl=impl,
-                                   **self._kernel_args())
+        with trace.span("gram_log"):
+            A = self._series(A)
+            B = self._corpus_or(B)
+            return ops._log_krdtw_gram(A, B, self.spec.nu, impl=impl,
+                                       **self._kernel_args())
 
     def knn(self, Q, *, impl: str = "auto", seed_k: int = 2,
             prefix_frac: float = 0.5, return_stats: bool = False,
@@ -217,7 +223,11 @@ class SimilarityEngine:
         sketch-nearest candidates, re-ranked exactly (K2 on the card):
         equal to exact mode whenever the shortlist holds the true
         neighbour; ``approx=True`` skips the re-rank.
-        Returns (nn_idx, nn_dist[, stats])."""
+        Returns (nn_idx, nn_dist[, stats]). In exact mode
+        ``return_stats="counts"`` returns the cascade's pair counts in
+        place of the stats, without a host read
+        (``kernels.ops._cascade_counts``; ``ops.cascade_stats`` turns them
+        into the stats)."""
         from repro_torch.kernels import ops
         if mode not in ("exact", "sketch"):
             raise ValueError(f"mode must be exact or sketch, not {mode!r}")
@@ -243,10 +253,15 @@ class SimilarityEngine:
         nnd = D.gather(1, nn[:, None].long())[:, 0]
         if not return_stats:
             return nn, nnd
+        pairs = int(Q.shape[0]) * self.corpus_size
+        if return_stats == "counts":
+            return nn, nnd, {"pairs": pairs, "seed_pairs": 0,
+                             "dp_pairs": pairs, "abandoned": 0,
+                             "stage1_pruned": 0, "stage2_pruned": 0,
+                             "stage3_pruned": 0}
         return nn, nnd, {"n_queries": int(Q.shape[0]),
                          "n_candidates": self.corpus_size,
-                         "pre_dp_prune": 0.0,
-                         "dp_pairs": int(Q.shape[0]) * self.corpus_size}
+                         "pre_dp_prune": 0.0, "dp_pairs": pairs}
 
     def sketch_embed(self, X, *, impl: str = "auto") -> torch.Tensor:
         """Project series into the engine's (R,) sketch space:
@@ -404,93 +419,113 @@ def fit(spec: MeasureSpec, corpus=None, *, labels=None,
     centroids:       fit this many soft-barycenter centroids per class
                      at fit time (> 0 needs labels), ``centroid_steps``
                      Adam steps each.
+
+    With the recorder of ``repro_torch.trace`` on, ``fit`` records the
+    span ``fit`` and its phases ``fit.counts`` (the occupancy counts),
+    ``fit.support`` (normalise and threshold), ``fit.plan`` (the tile
+    plan) and ``fit.index`` (the corpus index). ``fit`` is set-up, so
+    these spans wait for the device at their end (only while the recorder
+    is on): each holds its phase's device work.
     """
     from repro_torch.kernels import backends as bk
     dev = resolve_device(device)
-    if corpus is not None:
-        corpus = _as_series(corpus, dev)
-        T = int(corpus.shape[1])
-        d = bk.series_dim(corpus)
-    else:
-        d = 1
-    if not spec.is_sparse:
-        sp = weights = bsp = None
-    if sp is None and weights is not None:
-        sp = _weights_sp(weights, dev)
-    if spec.is_sparse and sp is None and bsp is None:
-        if spec.support == "learned":
-            src = support_corpus if support_corpus is not None else corpus
-            if src is None:
-                raise ValueError("learned support needs a corpus (or pass "
-                                 "sp/weights)")
-            src = _as_series(src, dev)
-            if n_support is not None:
-                src = src[:n_support]
-            sp = learn_sparse_paths(src, theta=spec.theta,
-                                    gamma=spec.weight_gamma)
-            T = int(src.shape[1]) if T is None else T
+    with trace.span("fit", sync=dev):
+        if corpus is not None:
+            corpus = _as_series(corpus, dev)
+            T = int(corpus.shape[1])
+            d = bk.series_dim(corpus)
         else:
-            if T is None:
-                raise ValueError("band support needs a corpus or T")
-            sp = _band_sp(T, spec.radius, dev)
-    if T is None:
-        T = sp.weights.shape[0] if sp is not None else \
-            (bsp.T if bsp is not None else None)
-    if T is None:
-        raise ValueError("could not infer the series length; pass corpus "
-                         "or T")
-    w = None if sp is None else sp.weights.to(dev)
-    # only the min-plus families execute on the block plan; the kernel
-    # and baseline engines dispatch on support / radius
-    plan = None
-    if spec.family in _CASCADE_FAMILIES:
-        if bsp is not None:
-            plan = bsp
-        elif w is not None:
-            plan = bk.resolve_plan(weights=w, tile=spec.tile)
-        else:
-            plan = bk.resolve_plan(T=T, tile=spec.tile)
-    index = None
-    if corpus is not None and spec.family in _CASCADE_FAMILIES:
-        if w is None and spec.is_sparse:
-            # bsp-only fit: reassemble the grid so the cascade's bounds
-            # see the real weights
-            sp = _weights_sp(bk.densify(plan)[:T, :T], dev)
-            w = sp.weights
-        iw = w if w is not None else np.ones((T, T), np.float32)
-        index = build_corpus_index(corpus, iw, kind=spec.family, bsp=plan)
-        if spec.sketch_r > 0 and d == 1:
-            # sketch tier (DESIGN.md §13): anchors drawn on the CPU from
-            # the spec's seed, corpus embedded through the same engines
-            from .sketch import (anchor_generator, build_sketch_index,
-                                 random_anchors)
-            anchors = random_anchors(anchor_generator(spec.seed),
-                                     spec.sketch_r, T,
-                                     max_len=spec.sketch_len).to(dev)
-            si = build_sketch_index(corpus, anchors, bsp=index.bsp,
-                                    weights=index.weights, seed=spec.seed)
-            index = dataclasses.replace(index, sketch=si)
-    elif corpus is not None and d == 1 and \
-            spec.family in ("krdtw", "sp_krdtw"):
-        # kernel-measure index (DESIGN.md §14): unit weights over the
-        # support, a plan for them, and nu; build_corpus_index computes
-        # the K1/K2 slacks from the same support
-        if spec.family == "sp_krdtw":
-            if sp is None:
+            d = 1
+        if not spec.is_sparse:
+            sp = weights = bsp = None
+        if sp is None and weights is not None:
+            sp = _weights_sp(weights, dev)
+        if spec.is_sparse and sp is None and bsp is None:
+            if spec.support == "learned":
+                src = support_corpus if support_corpus is not None else corpus
+                if src is None:
+                    raise ValueError("learned support needs a corpus (or pass "
+                                     "sp/weights)")
+                src = _as_series(src, dev)
+                if n_support is not None:
+                    src = src[:n_support]
+                with trace.span("fit.counts", sync=dev):
+                    counts = pairwise_path_counts(src)
+                with trace.span("fit.support", sync=dev):
+                    sp = learn_sparse_paths(src, theta=spec.theta,
+                                            gamma=spec.weight_gamma,
+                                            counts=counts)
+                T = int(src.shape[1]) if T is None else T
+            else:
+                if T is None:
+                    raise ValueError("band support needs a corpus or T")
+                sp = _band_sp(T, spec.radius, dev)
+        if T is None:
+            T = sp.weights.shape[0] if sp is not None else \
+                (bsp.T if bsp is not None else None)
+        if T is None:
+            raise ValueError("could not infer the series length; pass corpus "
+                             "or T")
+        w = None if sp is None else sp.weights.to(dev)
+        # only the min-plus families execute on the block plan; the kernel
+        # and baseline engines dispatch on support / radius
+        plan = None
+        if spec.family in _CASCADE_FAMILIES:
+            with trace.span("fit.plan", sync=dev):
+                if bsp is not None:
+                    plan = bsp
+                elif w is not None:
+                    plan = bk.resolve_plan(weights=w, tile=spec.tile)
+                else:
+                    plan = bk.resolve_plan(T=T, tile=spec.tile)
+        index = None
+        if corpus is not None and spec.family in _CASCADE_FAMILIES:
+            if w is None and spec.is_sparse:
+                # bsp-only fit: reassemble the grid so the cascade's bounds
+                # see the real weights
+                sp = _weights_sp(bk.densify(plan)[:T, :T], dev)
+                w = sp.weights
+            iw = w if w is not None else np.ones((T, T), np.float32)
+            with trace.span("fit.index", sync=dev):
+                index = build_corpus_index(corpus, iw, kind=spec.family,
+                                           bsp=plan)
+                if spec.sketch_r > 0 and d == 1:
+                    # sketch tier (DESIGN.md §13): anchors drawn on the CPU
+                    # from the spec's seed, corpus embedded through the same
+                    # engines
+                    from .sketch import (anchor_generator, build_sketch_index,
+                                         random_anchors)
+                    anchors = random_anchors(anchor_generator(spec.seed),
+                                             spec.sketch_r, T,
+                                             max_len=spec.sketch_len).to(dev)
+                    si = build_sketch_index(corpus, anchors, bsp=index.bsp,
+                                            weights=index.weights,
+                                            seed=spec.seed)
+                    index = dataclasses.replace(index, sketch=si)
+        elif corpus is not None and d == 1 and \
+                spec.family in ("krdtw", "sp_krdtw"):
+            # kernel-measure index (DESIGN.md §14): unit weights over the
+            # support, a plan for them, and nu; build_corpus_index computes
+            # the K1/K2 slacks from the same support
+            if spec.family == "sp_krdtw" and sp is None:
                 raise ValueError("sp_krdtw fit did not resolve a support")
-            sup_w = sp.support.detach().cpu().numpy().astype(np.float32)
-        else:
-            sup_w = np.ones((T, T), np.float32)
-        index = build_corpus_index(
-            corpus, sup_w, kind=spec.family,
-            bsp=bk.resolve_plan(weights=sup_w, tile=spec.tile), nu=spec.nu)
-    engine = SimilarityEngine(
-        spec=spec, T=T, d=d, sp=sp, weights=w, bsp=plan, corpus=corpus,
-        labels=None if labels is None else np.asarray(labels),
-        index=index, device=dev)
-    if centroids > 0:
-        engine = engine.fit_centroids(centroids, steps=centroid_steps)
-    return engine
+            with trace.span("fit.plan", sync=dev):
+                if spec.family == "sp_krdtw":
+                    sup_w = sp.support.detach().cpu().numpy() \
+                        .astype(np.float32)
+                else:
+                    sup_w = np.ones((T, T), np.float32)
+                kplan = bk.resolve_plan(weights=sup_w, tile=spec.tile)
+            with trace.span("fit.index", sync=dev):
+                index = build_corpus_index(corpus, sup_w, kind=spec.family,
+                                           bsp=kplan, nu=spec.nu)
+        engine = SimilarityEngine(
+            spec=spec, T=T, d=d, sp=sp, weights=w, bsp=plan, corpus=corpus,
+            labels=None if labels is None else np.asarray(labels),
+            index=index, device=dev)
+        if centroids > 0:
+            engine = engine.fit_centroids(centroids, steps=centroid_steps)
+        return engine
 
 
 def engine_for(family: str = "spdtw", *, sp=None, bsp=None, weights=None,

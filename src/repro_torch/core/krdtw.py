@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
 from .dtw import _interleave, band_mask
 
 THIRD = 1.0 / 3.0
@@ -219,5 +220,6 @@ def normalized_gram(logk_xy: torch.Tensor, logk_xx: torch.Tensor,
     """Cosine-normalized kernel matrix from log-kernel blocks:
     K~(x, y) = exp(logK(x, y) - (logK(x, x) + logK(y, y)) / 2), with
     subnormals flushed to zero as the reference's XLA does."""
-    return flush_subnormal(torch.exp(
-        logk_xy - 0.5 * (logk_xx[:, None] + logk_yy[None, :])))
+    with trace.span("normalized_gram"):
+        return flush_subnormal(torch.exp(
+            logk_xy - 0.5 * (logk_xx[:, None] + logk_yy[None, :])))

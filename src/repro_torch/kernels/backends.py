@@ -154,16 +154,6 @@ def _ones_plan(T: int) -> BlockSparsePaths:
     return block_sparsify(np.ones((T, T), np.float32), tile=default_tile(T))
 
 
-def plan_cache_stats() -> dict:
-    """Hit / miss counters of the cached plan resolver (the evidence that
-    a plan is built once per distinct weight grid)."""
-    info = _cached_plan.cache_info()
-    ones = _ones_plan.cache_info()
-    return {"hits": info.hits + ones.hits,
-            "misses": info.misses + ones.misses,
-            "entries": info.currsize + ones.currsize}
-
-
 def resolve_plan(sp=None, bsp=None, weights=None, *,
                  T: Optional[int] = None,
                  tile: Optional[int] = None) -> BlockSparsePaths:

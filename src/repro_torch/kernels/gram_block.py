@@ -280,6 +280,15 @@ def prefix_tile_count(bsp: BlockSparsePaths, frac: float,
     return int((meta[:, 0] < kt).sum())
 
 
+def prefix_cell_count(bsp: BlockSparsePaths, n_prefix: int) -> int:
+    """Support cells (nonzero weights) in the first ``n_prefix`` plan
+    steps: the cells a prefix pass evaluates per pair."""
+    if n_prefix <= 0:
+        return 0
+    slots = bsp.plan()[:n_prefix, 2]
+    return int(np.count_nonzero(bsp.blocks[slots]))
+
+
 def gram_prefix_bound(A: torch.Tensor, B: torch.Tensor,
                       bsp: BlockSparsePaths, n_prefix: int,
                       T_orig: Optional[int] = None,

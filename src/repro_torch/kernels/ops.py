@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import baselines as _baselines
 from repro_torch.core import bounds as _bounds
 from repro_torch.core.dtw import INF, band_mask
@@ -35,7 +36,8 @@ from .dtw_banded import banded_dtw, banded_dtw_gram
 from .dtw_wavefront import wavefront_dtw
 from .gram_block import (gram_log_krdtw_block, gram_prefix_bound,
                          gram_spdtw_block, gram_spdtw_scan,
-                         prefix_tile_count, spdtw_paired_scan)
+                         prefix_cell_count, prefix_tile_count,
+                         spdtw_paired_scan)
 from .krdtw_wavefront import mask_to_diagonal_major, wavefront_log_krdtw
 from .spdtw_block import spdtw_block
 
@@ -230,7 +232,7 @@ def _pair_dp(x: torch.Tensor, y: torch.Tensor, index: CorpusIndex,
 
 def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
                  seed_k: int = 2, prefix_frac: float = 0.5,
-                 block_a: int = 64, return_stats: bool = False,
+                 block_a: int = 64, return_stats=False,
                  centroid_model=None):
     """Exact 1-NN of queries against an indexed corpus (DESIGN.md §4).
 
@@ -246,115 +248,189 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
     gathers the survivors through the plain paired engine. All bounds are
     admissible and thresholds are exact distances of real candidates, so
     the neighbours equal a full Gram argmin bit for bit, first index on
-    ties. Returns (nn int32, nn_dist[, stats]).
+    ties. Returns (nn int32, nn_dist[, stats]); ``return_stats="counts"``
+    returns the pair counts of ``_cascade_counts`` in place of the stats,
+    read on the host nowhere. The stages are the recorder's spans
+    ``cascade.bounds`` / ``seed`` / ``prefix`` / ``dp`` / ``select``
+    under ``cascade``, and the counts its ``cascade.*`` counters.
     """
-    C = index.corpus
-    Q = Q.to(device=C.device, dtype=torch.float32)
-    Nq, T = Q.shape[:2]
-    Nc = C.shape[0]
-    seed_k = min(seed_k, Nc)
-    require = (bk.MULTIVARIATE,) if bk.series_dim(Q) > 1 else ()
-    if impl != "dense":
-        require += (bk.EARLY_ABANDON, bk.PRUNED_DP)
-    impl_r = bk.resolve(impl, device=Q.device, require=require).name
+    with trace.span("cascade"):
+        C = index.corpus
+        Q = Q.to(device=C.device, dtype=torch.float32)
+        Nq, T = Q.shape[:2]
+        Nc = C.shape[0]
+        seed_k = min(seed_k, Nc)
+        require = (bk.MULTIVARIATE,) if bk.series_dim(Q) > 1 else ()
+        if impl != "dense":
+            require += (bk.EARLY_ABANDON, bk.PRUNED_DP)
+        impl_r = bk.resolve(impl, device=Q.device, require=require).name
 
-    # --- stage 0: centroid-seeded threshold (k + 1 DPs per query): the
-    # exact distance to the medoid of each query's nearest centroid ---
-    cand = d_cand = None
-    n_centroids = 0
-    if centroid_model is not None and \
-            getattr(centroid_model, "medoids", None) is not None:
-        Z = centroid_model.centroids.to(device=Q.device, dtype=torch.float32)
-        n_centroids = int(Z.shape[0])
-        Dc = _spdtw_gram(Q, Z, bsp=index.bsp, weights=index.weights,
-                         impl=impl_r, block_a=block_a)
-        best_c = torch.argmin(Dc, dim=1)
-        cand = torch.as_tensor(np.asarray(centroid_model.medoids),
-                               dtype=torch.long, device=Q.device)[best_c]
-        d_cand = _pair_dp(Q, C[cand], index, impl_r)
+        # --- stage 0: centroid-seeded threshold (k + 1 DPs per query): the
+        # exact distance to the medoid of each query's nearest centroid ---
+        cand = d_cand = None
+        n_centroids = 0
+        if centroid_model is not None and \
+                getattr(centroid_model, "medoids", None) is not None:
+            with trace.span("cascade.seed"):
+                Z = centroid_model.centroids.to(device=Q.device,
+                                                dtype=torch.float32)
+                n_centroids = int(Z.shape[0])
+                Dc = _spdtw_gram(Q, Z, bsp=index.bsp, weights=index.weights,
+                                 impl=impl_r, block_a=block_a)
+                best_c = torch.argmin(Dc, dim=1)
+                cand = torch.as_tensor(np.asarray(centroid_model.medoids),
+                                       dtype=torch.long,
+                                       device=Q.device)[best_c]
+                d_cand = _pair_dp(Q, C[cand], index, impl_r)
 
-    # --- stage 1: banded endpoint bound ---
-    lb1 = _bounds.lb_kim_band_cross(Q, C, index.lo, index.hi,
-                                    index.wmin_rows, index.w00, index.wTT)
-    # --- stage 2: support-windowed envelopes, both orientations ---
-    lb2 = torch.maximum(lb1, _bounds.lb_keogh_cross(
-        Q, index.env_lo, index.env_hi, index.wmin_rows))
-    q_lo, q_hi = _bounds.envelopes(Q, index.lo_t, index.hi_t)
-    lb2 = torch.maximum(lb2, _bounds.lb_keogh_cross(
-        C, q_lo, q_hi, index.wmin_cols).T)
+        with trace.span("cascade.bounds"):
+            # --- stage 1: banded endpoint bound ---
+            lb1 = _bounds.lb_kim_band_cross(Q, C, index.lo, index.hi,
+                                            index.wmin_rows, index.w00,
+                                            index.wTT)
+            # --- stage 2: support-windowed envelopes, both orientations ---
+            lb2 = torch.maximum(lb1, _bounds.lb_keogh_cross(
+                Q, index.env_lo, index.env_hi, index.wmin_rows))
+            q_lo, q_hi = _bounds.envelopes(Q, index.lo_t, index.hi_t)
+            lb2 = torch.maximum(lb2, _bounds.lb_keogh_cross(
+                C, q_lo, q_hi, index.wmin_cols).T)
 
-    # --- seed thresholds: exact DP on the seed_k best-bounded candidates
-    # (a stable sort keeps the lower index first among equal bounds) ---
-    seed_idx = torch.sort(lb2, dim=1, stable=True).indices[:, :seed_k]
-    xq = Q.repeat_interleave(seed_k, dim=0)
-    yc = C[seed_idx.reshape(-1)]
-    seed_d = _pair_dp(xq, yc, index, impl_r).reshape(Nq, seed_k)
-    thr = seed_d.amin(dim=1)                                    # (Nq,)
-    if d_cand is not None:
-        thr = torch.minimum(thr, d_cand)
+        with trace.span("cascade.seed"):
+            # --- seed thresholds: exact DP on the seed_k best-bounded
+            # candidates (a stable sort keeps the lower index first among
+            # equal bounds) ---
+            seed_idx = torch.sort(lb2, dim=1, stable=True).indices[:, :seed_k]
+            xq = Q.repeat_interleave(seed_k, dim=0)
+            yc = C[seed_idx.reshape(-1)]
+            seed_d = _pair_dp(xq, yc, index, impl_r).reshape(Nq, seed_k)
+            thr = seed_d.amin(dim=1)                                # (Nq,)
+            if d_cand is not None:
+                thr = torch.minimum(thr, d_cand)
 
-    # --- survivors so far: bound <= threshold (non-strict keeps ties) ---
-    rows = torch.arange(Nq, device=Q.device)[:, None]
-    alive2 = lb2 <= thr[:, None]
-    alive2[rows, seed_idx] = False                              # known
-    if cand is not None:
-        alive2[rows[:, 0], cand] = False
+            # --- survivors so far: bound <= threshold (non-strict keeps
+            # ties) ---
+            rows = torch.arange(Nq, device=Q.device)[:, None]
+            alive2 = lb2 <= thr[:, None]
+            alive2[rows, seed_idx] = False                          # known
+            if cand is not None:
+                alive2[rows[:, 0], cand] = False
 
-    # --- stage 3: truncated prefix-DP bound on the block plan ---
-    n_prefix = prefix_tile_count(index.bsp, prefix_frac, T)
-    if n_prefix > 0 and impl_r != "dense":
-        if impl_r == "cuda":
-            lb3 = gram_spdtw_block(Q, C, index.bsp, T_orig=T,
-                                   n_prefix=n_prefix)
+        # --- stage 3: truncated prefix-DP bound on the block plan ---
+        n_prefix = prefix_tile_count(index.bsp, prefix_frac, T)
+        prefix_pairs = 0
+        if n_prefix > 0 and impl_r != "dense":
+            with trace.span("cascade.prefix"):
+                if impl_r == "cuda":
+                    lb3 = gram_spdtw_block(Q, C, index.bsp, T_orig=T,
+                                           n_prefix=n_prefix)
+                else:
+                    lb3 = gram_prefix_bound(Q, C, index.bsp, n_prefix,
+                                            T_orig=T, block_a=block_a)
+                alive = alive2 & (lb3 <= thr[:, None])
+            prefix_pairs = Nq * Nc
         else:
-            lb3 = gram_prefix_bound(Q, C, index.bsp, n_prefix, T_orig=T,
-                                    block_a=block_a)
-        alive = alive2 & (lb3 <= thr[:, None])
-    else:
-        lb3 = lb2
-        alive = alive2
+            lb3 = lb2
+            alive = alive2
 
-    # --- stage 4: exact DP on the survivors, early abandoning ---
-    D = torch.full((Nq, Nc), INF, dtype=torch.float32, device=Q.device)
-    D[rows, seed_idx] = seed_d
-    if cand is not None:
-        D[rows[:, 0], cand] = d_cand
-    G_ab = None
-    if impl_r == "scan":
-        # gather the survivors: the DP only ever touches those pairs
-        qi, ci = torch.nonzero(alive, as_tuple=True)
-        if len(qi):
-            D[qi, ci] = _pair_dp(Q[qi], C[ci], index, impl_r,
-                                 thresholds=thr[qi])
-    else:
-        G_ab = _spdtw_gram(Q, C, bsp=index.bsp, weights=index.weights,
-                           impl=impl_r, block_a=block_a, thresholds=thr,
-                           alive0=alive)
-        D = torch.where(alive, G_ab, D)
-    nn = torch.argmin(D, dim=1).to(torch.int32)
-    nnd = D.gather(1, nn[:, None].long())[:, 0]
+        with trace.span("cascade.dp"):
+            # --- stage 4: exact DP on the survivors, early abandoning ---
+            D = torch.full((Nq, Nc), INF, dtype=torch.float32,
+                           device=Q.device)
+            D[rows, seed_idx] = seed_d
+            if cand is not None:
+                D[rows[:, 0], cand] = d_cand
+            G_ab = None
+            if impl_r == "scan":
+                # gather the survivors: the DP only ever touches those pairs
+                qi, ci = torch.nonzero(alive, as_tuple=True)
+                if len(qi):
+                    D[qi, ci] = _pair_dp(Q[qi], C[ci], index, impl_r,
+                                         thresholds=thr[qi])
+            else:
+                G_ab = _spdtw_gram(Q, C, bsp=index.bsp,
+                                   weights=index.weights, impl=impl_r,
+                                   block_a=block_a, thresholds=thr,
+                                   alive0=alive)
+                D = torch.where(alive, G_ab, D)
+
+        with trace.span("cascade.select"):
+            nn = torch.argmin(D, dim=1).to(torch.int32)
+            nnd = D.gather(1, nn[:, None].long())[:, 0]
+        if not (return_stats or trace.ON):
+            return nn, nnd
+        th = thr[:, None]
+        counts = _cascade_counts(
+            alive2, alive,
+            seed_pairs=Nq * (seed_k + (n_centroids + 1
+                                       if cand is not None else 0)),
+            prefix_pairs=prefix_pairs, bsp=index.bsp, n_prefix=n_prefix,
+            abandoned=alive & ((D if G_ab is None else G_ab) >= 1e29),
+            pruned=(lb1 > th, lb2 > th, lb3 > th) if return_stats else ())
+        return _cascade_out(nn, nnd, counts, return_stats, {
+            "n_queries": Nq, "n_candidates": Nc, "seed_k": seed_k,
+            "n_centroids": n_centroids,
+            "prefix_tiles": n_prefix, "plan_tiles": index.bsp.n_active})
+
+
+def _cascade_counts(alive2: torch.Tensor, alive: torch.Tensor, *,
+                    seed_pairs: int, prefix_pairs: int, bsp, n_prefix: int,
+                    abandoned: Optional[torch.Tensor] = None,
+                    pruned=()) -> dict:
+    """The cascade's pair counts, computed once for the stats and the
+    recorder: ints where the shapes give them, 0-d device tensors (read on
+    the host nowhere here) where the bounds do.
+
+    pairs         Nq x Nc;
+    seed_pairs    the exact DPs of the seeds (and the centroid stage);
+    dp_pairs      the survivors the exact DP runs on (``alive``);
+    abandoned     the survivors whose DP was abandoned (0 without);
+    stage{1,2,3}_pruned  the pairs each bound alone settles, from the
+                  masks ``pruned`` (``return_stats`` only);
+    and, only while the recorder is on (no stats read them):
+    alive2        the pairs left after the bounds and the seeds;
+    prefix_pairs  the pairs the prefix pass evaluates (all, or 0);
+    prefix_cells  the support cells of the first ``n_prefix`` plan steps
+                  of ``bsp``, over those pairs.
+    """
+    counts = {"pairs": alive.numel(), "seed_pairs": seed_pairs,
+              "dp_pairs": alive.sum(),
+              "abandoned": 0 if abandoned is None else abandoned.sum()}
+    if trace.ON:
+        counts.update(
+            alive2=alive2.sum(), prefix_pairs=prefix_pairs,
+            prefix_cells=prefix_pairs * prefix_cell_count(bsp, n_prefix))
+    for i, m in enumerate(pruned, 1):
+        counts[f"stage{i}_pruned"] = m.sum()
+    return counts
+
+
+def _cascade_out(nn, nnd, counts: dict, return_stats, shape: dict):
+    """Record ``counts`` when the recorder is on, and return what the
+    caller asked for: (nn, nnd), with the counts, or with the stats of
+    ``return_stats=True`` (one host read per count)."""
+    for k, v in counts.items():
+        trace.count("cascade." + k, v)
     if not return_stats:
         return nn, nnd
-    total = Nq * Nc
-    dp_pairs = int(alive.sum()) + Nq * (
-        seed_k + (n_centroids + 1 if cand is not None else 0))
-    abandoned = alive & ((D if G_ab is None else G_ab) >= 1e29)
+    if return_stats == "counts":
+        return nn, nnd, counts
+    return nn, nnd, {**shape, **cascade_stats(counts)}
 
-    def frac(m):
-        return float(m.to(torch.float32).mean())
 
-    stats = {
-        "n_queries": Nq, "n_candidates": Nc, "seed_k": seed_k,
-        "n_centroids": n_centroids,
-        "prefix_tiles": n_prefix, "plan_tiles": index.bsp.n_active,
-        "stage1_prune": frac(lb1 > thr[:, None]),
-        "stage2_prune": frac(lb2 > thr[:, None]),
-        "stage3_prune": frac(lb3 > thr[:, None]),
+def cascade_stats(counts: dict) -> dict:
+    """The cascade's prune stats from its pair counts (host reads): the
+    share of pairs each bound settles, the share settled without a DP,
+    the DPs run (survivors and seeds) and the share abandoned."""
+    total = counts["pairs"]
+    dp_pairs = int(counts["dp_pairs"]) + counts["seed_pairs"]
+    return {
+        "stage1_prune": int(counts["stage1_pruned"]) / total,
+        "stage2_prune": int(counts["stage2_pruned"]) / total,
+        "stage3_prune": int(counts["stage3_pruned"]) / total,
         "pre_dp_prune": 1.0 - dp_pairs / total,
         "dp_pairs": dp_pairs,
-        "dp_abandoned": frac(abandoned),
+        "dp_abandoned": int(counts["abandoned"]) / total,
     }
-    return nn, nnd, stats
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +448,7 @@ def _krdtw_pair_eval(x: torch.Tensor, y: torch.Tensor, index: CorpusIndex,
 def _krdtw_knn_cascade(Q: torch.Tensor, index: CorpusIndex, *,
                        impl: str = "auto", seed_k: int = 2,
                        prefix_frac: float = 0.5, block_a: int = 64,
-                       return_stats: bool = False):
+                       return_stats=False):
     """Exact kernel 1-NN under the dissimilarity -log K_rdtw (DESIGN.md
     §14).
 
@@ -387,83 +463,95 @@ def _krdtw_knn_cascade(Q: torch.Tensor, index: CorpusIndex, *,
     bound is admissible, so the neighbours equal the ``-gram_log``
     argmin bit for bit (K3 and K4 agree bit for bit). As in the
     reference, ``stage1_prune`` is computed from the stage-2 bound.
-    Returns (nn int32, nn_dist[, stats]).
+    Returns (nn int32, nn_dist[, stats]); spans, counters and
+    ``return_stats="counts"`` as in ``_knn_cascade``.
     """
     if Q.ndim != 2:
         raise ValueError("the kernel measures are univariate: (Nq, T)")
-    C = index.corpus
-    Q = Q.to(device=C.device, dtype=torch.float32)
-    Nq, T = Q.shape
-    Nc = C.shape[0]
-    seed_k = min(seed_k, Nc)
-    impl_r = bk.resolve(impl, device=Q.device).name
-    nu = index.nu
+    with trace.span("cascade"):
+        C = index.corpus
+        Q = Q.to(device=C.device, dtype=torch.float32)
+        Nq, T = Q.shape
+        Nc = C.shape[0]
+        seed_k = min(seed_k, Nc)
+        impl_r = bk.resolve(impl, device=Q.device).name
+        nu = index.nu
 
-    # --- min-plus bound b1 on the unit-weight masked path cost ---
-    b1 = _bounds.lb_kim_band_cross(Q, C, index.lo, index.hi,
-                                   index.wmin_rows, index.w00, index.wTT)
-    b1 = torch.maximum(b1, _bounds.lb_keogh_cross(
-        Q, index.env_lo, index.env_hi, index.wmin_rows))
-    q_lo, q_hi = _bounds.envelopes(Q, index.lo_t, index.hi_t)
-    b1 = torch.maximum(b1, _bounds.lb_keogh_cross(
-        C, q_lo, q_hi, index.wmin_cols).T)
-    # --- b2: every K2 path pays the aligned endpoint factors ---
-    b2 = (Q[:, 0, None] - C[None, :, 0]) ** 2
-    if T > 1:
-        b2 = b2 + (Q[:, -1, None] - C[None, :, -1]) ** 2
-    lb2 = _bounds.lb_log_krdtw(b1, b2, nu, index.log_s1, index.log_s2)
+        with trace.span("cascade.bounds"):
+            # --- min-plus bound b1 on the unit-weight masked path cost ---
+            b1 = _bounds.lb_kim_band_cross(Q, C, index.lo, index.hi,
+                                           index.wmin_rows, index.w00,
+                                           index.wTT)
+            b1 = torch.maximum(b1, _bounds.lb_keogh_cross(
+                Q, index.env_lo, index.env_hi, index.wmin_rows))
+            q_lo, q_hi = _bounds.envelopes(Q, index.lo_t, index.hi_t)
+            b1 = torch.maximum(b1, _bounds.lb_keogh_cross(
+                C, q_lo, q_hi, index.wmin_cols).T)
+            # --- b2: every K2 path pays the aligned endpoint factors ---
+            b2 = (Q[:, 0, None] - C[None, :, 0]) ** 2
+            if T > 1:
+                b2 = b2 + (Q[:, -1, None] - C[None, :, -1]) ** 2
+            lb2 = _bounds.lb_log_krdtw(b1, b2, nu, index.log_s1,
+                                       index.log_s2)
 
-    # --- seed thresholds: exact -log K on the best-bounded candidates ---
-    seed_idx = torch.sort(lb2, dim=1, stable=True).indices[:, :seed_k]
-    xq = Q.repeat_interleave(seed_k, dim=0)
-    yc = C[seed_idx.reshape(-1)]
-    seed_d = _krdtw_pair_eval(xq, yc, index, impl_r).reshape(Nq, seed_k)
-    thr = seed_d.amin(dim=1)                                    # (Nq,)
+        with trace.span("cascade.seed"):
+            # --- seed thresholds: exact -log K on the best-bounded
+            # candidates ---
+            seed_idx = torch.sort(lb2, dim=1, stable=True).indices[:, :seed_k]
+            xq = Q.repeat_interleave(seed_k, dim=0)
+            yc = C[seed_idx.reshape(-1)]
+            seed_d = _krdtw_pair_eval(xq, yc, index, impl_r) \
+                .reshape(Nq, seed_k)
+            thr = seed_d.amin(dim=1)                                # (Nq,)
 
-    rows = torch.arange(Nq, device=Q.device)[:, None]
-    alive2 = lb2 <= thr[:, None]
-    alive2[rows, seed_idx] = False                              # known
+            rows = torch.arange(Nq, device=Q.device)[:, None]
+            alive2 = lb2 <= thr[:, None]
+            alive2[rows, seed_idx] = False                          # known
 
-    # --- prefix-DP tightens b1 (min-plus sweep on the unit-weight plan) ---
-    n_prefix = prefix_tile_count(index.bsp, prefix_frac, T)
-    if n_prefix > 0 and impl_r != "dense":
-        if impl_r == "cuda":
-            pb = gram_spdtw_block(Q, C, index.bsp, T_orig=T,
-                                  n_prefix=n_prefix)
+        # --- prefix-DP tightens b1 (min-plus sweep on the unit-weight
+        # plan) ---
+        n_prefix = prefix_tile_count(index.bsp, prefix_frac, T)
+        prefix_pairs = 0
+        if n_prefix > 0 and impl_r != "dense":
+            with trace.span("cascade.prefix"):
+                if impl_r == "cuda":
+                    pb = gram_spdtw_block(Q, C, index.bsp, T_orig=T,
+                                          n_prefix=n_prefix)
+                else:
+                    pb = gram_prefix_bound(Q, C, index.bsp, n_prefix,
+                                           T_orig=T, block_a=block_a)
+                lb3 = _bounds.lb_log_krdtw(torch.maximum(b1, pb), b2, nu,
+                                           index.log_s1, index.log_s2)
+                alive = alive2 & (lb3 <= thr[:, None])
+            prefix_pairs = Nq * Nc
         else:
-            pb = gram_prefix_bound(Q, C, index.bsp, n_prefix, T_orig=T,
-                                   block_a=block_a)
-        lb3 = _bounds.lb_log_krdtw(torch.maximum(b1, pb), b2, nu,
-                                   index.log_s1, index.log_s2)
-        alive = alive2 & (lb3 <= thr[:, None])
-    else:
-        lb3 = lb2
-        alive = alive2
+            lb3 = lb2
+            alive = alive2
 
-    # --- exact -log K on the survivors (gathered: K4 on cuda) ---
-    D = torch.full((Nq, Nc), INF, dtype=torch.float32, device=Q.device)
-    D[rows, seed_idx] = seed_d
-    qi, ci = torch.nonzero(alive, as_tuple=True)
-    if len(qi):
-        D[qi, ci] = _krdtw_pair_eval(Q[qi], C[ci], index, impl_r)
-    nn = torch.argmin(D, dim=1).to(torch.int32)
-    nnd = D.gather(1, nn[:, None].long())[:, 0]
-    if not return_stats:
-        return nn, nnd
-    dp_pairs = int(alive.sum()) + Nq * seed_k
+        with trace.span("cascade.dp"):
+            # --- exact -log K on the survivors (gathered: K4 on cuda) ---
+            D = torch.full((Nq, Nc), INF, dtype=torch.float32,
+                           device=Q.device)
+            D[rows, seed_idx] = seed_d
+            qi, ci = torch.nonzero(alive, as_tuple=True)
+            if len(qi):
+                D[qi, ci] = _krdtw_pair_eval(Q[qi], C[ci], index, impl_r)
 
-    def frac(m):
-        return float(m.to(torch.float32).mean())
-
-    stats = {
-        "n_queries": Nq, "n_candidates": Nc, "seed_k": seed_k,
-        "n_centroids": 0,
-        "prefix_tiles": n_prefix, "plan_tiles": index.bsp.n_active,
-        "stage1_prune": frac(lb2 > thr[:, None]),
-        "stage2_prune": frac(lb2 > thr[:, None]),
-        "stage3_prune": frac(lb3 > thr[:, None]),
-        "pre_dp_prune": 1.0 - dp_pairs / (Nq * Nc),
-        "dp_pairs": dp_pairs,
-        "dp_abandoned": 0.0,
-    }
-    return nn, nnd, stats
+        with trace.span("cascade.select"):
+            nn = torch.argmin(D, dim=1).to(torch.int32)
+            nnd = D.gather(1, nn[:, None].long())[:, 0]
+        if not (return_stats or trace.ON):
+            return nn, nnd
+        th = thr[:, None]
+        pruned = ()
+        if return_stats:
+            m2 = lb2 > th
+            pruned = (m2, m2, lb3 > th)
+        counts = _cascade_counts(
+            alive2, alive, seed_pairs=Nq * seed_k,
+            prefix_pairs=prefix_pairs, bsp=index.bsp, n_prefix=n_prefix,
+            pruned=pruned)
+        return _cascade_out(nn, nnd, counts, return_stats, {
+            "n_queries": Nq, "n_candidates": Nc, "seed_k": seed_k,
+            "n_centroids": 0,
+            "prefix_tiles": n_prefix, "plan_tiles": index.bsp.n_active})

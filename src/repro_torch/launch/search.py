@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.engine import fit, resolve_device
 from repro_torch.core.occupancy import SparsePaths, learn_sparse_paths
 from repro_torch.core.spec import MeasureSpec
@@ -54,6 +55,9 @@ from repro_torch.launch.stats import percentiles
 
 _STAT_KEYS = ("stage1_prune", "stage2_prune", "stage3_prune",
               "pre_dp_prune", "dp_abandoned")
+# the cascade's pair counts a cascade-mode stream sums on the device
+_DEVICE_COUNT_KEYS = ("stage1_pruned", "stage2_pruned", "stage3_pruned",
+                      "dp_pairs", "abandoned")
 _SKETCH_STAT_KEYS = ("shortlist_prune", "bound_prune", "pre_dp_prune")
 
 
@@ -208,8 +212,12 @@ class SearchEngine:
         """Zero every serving accumulator (prune counters, latency
         samples, pair and query totals, refresh lag), so each stream
         reports its own stats."""
-        keys = _SKETCH_STAT_KEYS if self.mode == "sketch" else _STAT_KEYS
-        self._stats_acc: Dict[str, float] = {k: 0.0 for k in keys}
+        self._stats_acc: Dict[str, float] = {k: 0.0
+                                             for k in _SKETCH_STAT_KEYS}
+        # cascade mode: the cascade's pair counts by corpus size, summed
+        # where they live (device counts on the device) and read once by
+        # ``stats()``
+        self._counts: Dict[int, Dict[str, object]] = {}
         self._lat: Dict[str, List[float]] = {}
         self._pairs_total = 0
         self._pairs_dp = 0
@@ -221,6 +229,10 @@ class SearchEngine:
 
     def _record_lat(self, stage: str, seconds: float) -> None:
         self._lat.setdefault(stage, []).append(seconds)
+
+    def _since(self, t0_ns: int) -> float:
+        """Seconds from ``t0_ns`` on the recorder's clock."""
+        return (trace.clock_ns() - t0_ns) * 1e-9
 
     @property
     def measure(self):
@@ -239,16 +251,16 @@ class SearchEngine:
         if self.monitor is not None:
             # anomaly decisions and the drift window on this batch, timed
             # as their own stage (observe ends in a host sync)
-            t_m = time.time()
+            t_m = trace.clock_ns()
             self.monitor.observe(Q, impl=self.impl)
-            self._record_lat("monitor", time.time() - t_m)
-        t0 = time.time()
+            self._record_lat("monitor", self._since(t_m))
+        t0 = trace.clock_ns()
         if self.mode == "centroid":
             from repro_torch.cluster import nearest_centroid
             idx, dist = nearest_centroid(Q, self.centroid_model,
                                          impl=self.impl)
             idx, dist = idx.cpu().numpy(), dist.cpu().numpy()
-            self._record_lat("total", time.time() - t0)
+            self._record_lat("total", self._since(t0))
             self._queries += n
             self._pairs_total += n * self.index.size
             self._pairs_dp += n * self.centroid_model.k
@@ -258,7 +270,7 @@ class SearchEngine:
             # inside the shards, so only the wall clock is recorded
             nn, dist = self.sharded.knn(Q)
             nn, dist = nn.cpu().numpy(), dist.cpu().numpy()
-            self._record_lat("total", time.time() - t0)
+            self._record_lat("total", self._since(t0))
             self._queries += n
             self._pairs_total += n * self.index.size
             return nn, dist
@@ -269,20 +281,54 @@ class SearchEngine:
         else:
             nn, dist, st = self.engine.knn(
                 Q, impl=self.impl, seed_k=self.seed_k,
-                prefix_frac=self.prefix_frac, return_stats=True)
+                prefix_frac=self.prefix_frac, return_stats="counts")
         # the host copy waits for this stream's work only, so the clock
         # is honest and a learner's stream is not waited on
         nn, dist = nn.cpu().numpy(), dist.cpu().numpy()
-        self._record_lat("total", time.time() - t0)
-        for stage in ("embed", "shortlist", "rerank"):
-            if f"t_{stage}_s" in st:
-                self._record_lat(stage, float(st[f"t_{stage}_s"]))
-        for k in self._stats_acc:
-            self._stats_acc[k] += float(st.get(k, 0.0)) * n
+        self._record_lat("total", self._since(t0))
         self._queries += n
         self._pairs_total += n * self.index.size
-        self._pairs_dp += int(st["dp_pairs"])
+        if self.mode == "sketch":
+            for stage in ("embed", "shortlist", "rerank"):
+                if f"t_{stage}_s" in st:
+                    self._record_lat(stage, float(st[f"t_{stage}_s"]))
+            for k in self._stats_acc:
+                self._stats_acc[k] += float(st.get(k, 0.0)) * n
+            self._pairs_dp += int(st["dp_pairs"])
+        else:
+            self._add_counts(st, n)
         return nn, dist
+
+    def _add_counts(self, st: dict, n: int) -> None:
+        """Add a cascade's pair counts to this corpus size's accumulators
+        (made once), in place: device counts stay on the device, unread."""
+        acc = self._counts.get(self.index.size)
+        if acc is None:
+            acc = self._counts[self.index.size] = {
+                "n": 0, "seed_pairs": 0,
+                **{k: torch.zeros_like(st["dp_pairs"])
+                   for k in _DEVICE_COUNT_KEYS}}
+        acc["n"] += n
+        acc["seed_pairs"] += st["seed_pairs"]
+        for k in _DEVICE_COUNT_KEYS:
+            acc[k].add_(st[k])
+
+    def _cascade_stats(self) -> Dict[str, float]:
+        """The cascade mode's prune rates, each batch weighted by its
+        queries, and ``pairs_dp``: one host read per accumulated count."""
+        out = dict.fromkeys(_STAT_KEYS, 0.0)
+        dp = 0
+        for nc, acc in self._counts.items():
+            c = {k: int(acc[k]) for k in (*_DEVICE_COUNT_KEYS,
+                                          "seed_pairs")}
+            for i in (1, 2, 3):
+                out[f"stage{i}_prune"] += c[f"stage{i}_pruned"] / nc
+            out["dp_abandoned"] += c["abandoned"] / nc
+            out["pre_dp_prune"] += acc["n"] - (c["dp_pairs"]
+                                               + c["seed_pairs"]) / nc
+            dp += c["dp_pairs"] + c["seed_pairs"]
+        return {**{k: v / self._queries for k, v in out.items()},
+                "pairs_dp": dp}
 
     def stats(self) -> Dict[str, float]:
         """Per-stage prune rates over everything served (cascade and
@@ -300,10 +346,14 @@ class SearchEngine:
                 "n_shards": self.sharded.n_shards,
                 "shard_balance": self.sharded.balance()}
         else:
-            out = {} if self.mode == "centroid" else \
-                {k: v / self._queries for k, v in self._stats_acc.items()}
-            out["pairs_dp"] = self._pairs_dp
-            out["pre_dp_prune_overall"] = 1.0 - self._pairs_dp / max(
+            if self.mode == "cascade":
+                out = self._cascade_stats()
+            else:
+                out = {} if self.mode == "centroid" else \
+                    {k: v / self._queries
+                     for k, v in self._stats_acc.items()}
+                out["pairs_dp"] = self._pairs_dp
+            out["pre_dp_prune_overall"] = 1.0 - out["pairs_dp"] / max(
                 self._pairs_total, 1)
         out["queries"] = self._queries
         out["pairs_total"] = self._pairs_total

@@ -3,8 +3,8 @@ imports from ``repro_torch`` and is in its ``__all__``, except the nine
 deprecated module-level kernel wrappers of ``repro.kernels.ops``
 (``_deprecated``, ``src/repro/kernels/ops.py:66``), which every caller
 replaced by the fitted engine; also the helpers the reference keeps
-beside them (``core.spec.spec``, ``register_backend``,
-``plan_cache_stats``).
+beside them (``core.spec.spec``, ``register_backend``) and the plan
+resolver's cache.
 """
 import pytest
 
@@ -40,18 +40,17 @@ def test_all_names_resolve():
 
 def test_spec_registry_helpers():
     from repro_torch.core.spec import MeasureSpec, spec
-    from repro_torch.kernels.backends import (Backend, available_backends,
-                                              plan_cache_stats,
+    from repro_torch.kernels.backends import (Backend, _ones_plan,
+                                              available_backends,
                                               register_backend, resolve_plan)
     assert spec("spdtw", theta=2.0) == MeasureSpec("spdtw", theta=2.0)
     assert spec().family == "spdtw"
-    before = plan_cache_stats()
+    before = _ones_plan.cache_info()
     resolve_plan(T=17)
     resolve_plan(T=17)
-    after = plan_cache_stats()
-    assert after["hits"] + after["misses"] == (before["hits"]
-                                               + before["misses"] + 2)
-    assert after["hits"] >= before["hits"] + 1
+    after = _ones_plan.cache_info()
+    assert after.hits + after.misses == before.hits + before.misses + 2
+    assert after.hits >= before.hits + 1
     extra = Backend("extra", "cpu", frozenset(), "scan", "a test record")
     register_backend(extra)
     try:
