@@ -13,7 +13,8 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
 2. Kernels against their plain PyTorch versions, on the card:
    - K2 (``spdtw_tiles_paired``) against ``spdtw_paired_scan``, K1
      (``spdtw_tiles_gram``: plain, thresholded with ``alive0``, prefix
-     mode) against ``gram_spdtw_scan`` / ``gram_prefix_bound``, for every
+     mode on the grid and on an ``alive0`` list) against
+     ``gram_spdtw_scan`` / ``gram_prefix_bound``, for every
      tile edge S, d in {1, 3}, random sparse supports and a learned one,
      and at T = 60 and 96 on their default tiles;
    - K3 (``krdtw_gram``) and K4 (``krdtw_paired``) against
@@ -44,7 +45,12 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    test, T = 128, 4 classes): ``fit`` learns the support from all
    499,500 train pairs on the card, ``engine.gram`` runs K1 over
    4000 x 1000, ``engine.knn`` the cascade (K2 seeds, K1 prefix bound and
-   survivors), whose neighbours must equal the Gram argmin bit for bit;
+   survivors), with and without stats, whose neighbours must equal the
+   Gram argmin bit for bit; the cascade's own masks (the prefix pass's
+   and the exact pass's pairs) give ``spdtw_pair_list``'s lists, each
+   equal to ``pair_list_plain``'s, and K1's list mode on them must equal,
+   on the listed pairs, ``gram_prefix_bound`` (prefix pass) and K1's
+   thresholded grid (exact pass) bit for bit;
    ``engine.classify`` gives the error rate, and the DTW Gram (K1 over
    the all-ones plan) the SP-DTW / DTW time ratio. A slice of the Gram is
    held against the dense core DP, and the Gram is timed again on
@@ -239,7 +245,8 @@ Phases (each one fails the run on a mismatch, with a nonzero exit):
    each of its templates that takes the width, and at T = 1024, w = 204;
    K5 with and without a radius; both K8 / K9 templates at the pair counts
    on either side of ``PAIRS_MIN_FWD`` / ``PAIRS_MIN_BWD`` (a record, not
-   a gate); one JSON line ``{"kernels": ...}`` of all nine kernels.
+   a gate); the pair list at the cascade's prefix mask; one JSON line
+   ``{"kernels": ...}`` of all nine kernels and the pair list.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
@@ -295,12 +302,14 @@ KERNELS = {
                          CSRC + "soft_tiles.cu"),
     "soft_tiles_bwd": ("src/repro/kernels/soft_block.py:998",
                        CSRC + "soft_tiles.cu"),
+    # K1's list: the TPU's grid took no list, so it replaces nothing
+    "spdtw_pair_list": (None, CSRC + "spdtw_tiles.cu"),
 }
 LIBRARIES = ("spdtw_tiles", "krdtw_wavefront", "dtw_wavefront", "soft_tiles")
 SOFT = ("soft_tiles_fwd", "soft_tiles_stash", "soft_tiles_bwd")
 # the kernels of the SP-DTW path (phase 3) and of the kernel-measure and
 # baseline path (phase 3b)
-SLICE1 = ("spdtw_tiles_gram", "spdtw_tiles_paired")
+SLICE1 = ("spdtw_tiles_gram", "spdtw_tiles_paired", "spdtw_pair_list")
 SLICE2 = ("spdtw_tiles_gram", "krdtw_gram", "krdtw_paired", "dtw_wavefront",
           "dtw_banded")
 # K3 / K4 against their plain versions (exp / log on both sides)
@@ -457,6 +466,12 @@ def _check_case(label, bsp, A, B, T):
         Lbp = gb.gram_prefix_bound(A, B, bsp, n_prefix, T_orig=T,
                                    block_a=A.shape[0])
         record("spdtw_tiles_gram", f"prefix({n_prefix})", Lb, Lbp)
+        Ll = gb.gram_spdtw_block(A, B, bsp, T_orig=T, n_prefix=n_prefix,
+                                 alive0=alive0)
+        record("spdtw_tiles_gram", f"prefix({n_prefix}) alive0 list",
+               Ll[alive0], Lbp[alive0])
+        require(bool((Ll[~alive0] >= 1e29).all()),
+                f"{label} prefix alive0 list: unlisted pairs not +INF")
     n = min(A.shape[0], B.shape[0])
     x, y = A[:n], B[:n]
     P = spdtw_block(x, y, bsp, T_orig=T)
@@ -910,6 +925,8 @@ def phase_main_path():
     G = timed("engine.gram (K1)", lambda: eng.gram(ds.X_test))
     nn, nnd, stats = timed("engine.knn cascade",
                            lambda: eng.knn(ds.X_test, return_stats=True))
+    nn0, nnd0 = timed("engine.knn cascade, no stats (both passes listed)",
+                      lambda: eng.knn(ds.X_test))
     pred = timed("engine.classify", lambda: eng.classify(ds.X_test))
     deng = fit(MeasureSpec("dtw", support="dense"), ds.X_train,
                labels=ds.y_train, device=DEVICE)
@@ -930,7 +947,11 @@ def phase_main_path():
     require(torch.equal(nn, ref_nn), "cascade nn != Gram argmin")
     require(torch.equal(nnd, G.gather(1, ref_nn[:, None].long())[:, 0]),
             "cascade nn distance != Gram minimum")
-    log(f"  cascade nn == Gram argmin, bit for bit; stats {stats}")
+    require(torch.equal(nn0, nn) and torch.equal(nnd0, nnd),
+            "cascade without stats != Gram argmin")
+    log(f"  cascade nn == Gram argmin, bit for bit, with and without "
+        f"stats; stats {stats}")
+    alive2 = _check_cascade_lists(eng, ds.X_test, G, stats["prefix_tiles"])
     err = float(np.mean(pred != ds.y_test))
     require(np.array_equal(pred, ds.y_train[nn.cpu().numpy()]),
             "classify != labels of knn")
@@ -955,7 +976,71 @@ def phase_main_path():
         f"{1 / ratio:.2f}x; tiles {bsp.n_active} vs "
         f"{deng.bsp.n_active})")
     return {"engine": eng, "ds": ds, "X_test": ds.X_test, "G": G, "nn": nn,
-            "launches": launches, "stages": stage}
+            "alive2": alive2, "launches": launches, "stages": stage}
+
+
+def _check_cascade_lists(eng, X_test, G, n_prefix):
+    """The cascade's own pair lists at the main shape. ``engine.knn``
+    without stats gives K1's list mode two masks: the pairs left after
+    the bounds and seeds (``alive2``, the prefix pass) and the survivors
+    (``alive``, the exact pass). Each mask's ``pair_list_cuda`` must equal
+    ``pair_list_plain``; K1's prefix mode on the ``alive2`` list must
+    equal ``gram_prefix_bound`` on the listed pairs, and read +INF on the
+    others; K1's thresholded exact mode on the ``alive`` list must equal
+    K1's thresholded grid on the listed pairs. All bit for bit. Returns
+    ``alive2``."""
+    import torch
+    from repro_torch.kernels import gram_block as gb
+    masks = []
+    listed = gb.pair_list
+
+    def keep(mask):
+        masks.append(mask.clone())
+        return listed(mask)
+
+    gb.pair_list = keep
+    try:
+        eng.knn(X_test)
+    finally:
+        gb.pair_list = listed
+    require(len(masks) == 2, f"the cascade built {len(masks)} pair lists, "
+            f"expected 2 (its prefix and exact passes)")
+    alive2, alive = masks
+    require(not bool((alive & ~alive2).any()),
+            "the exact pass lists a pair the prefix pass did not")
+    for what, m in (("prefix pass (alive2)", alive2),
+                    ("exact pass (alive)", alive)):
+        ids, count = gb.pair_list_cuda(m)
+        want, n = gb.pair_list_plain(m.cpu())
+        require(torch.equal(count.cpu(), n) and
+                torch.equal(ids[:int(n)].cpu(), want),
+                f"pair_list_cuda != pair_list_plain on the {what} mask")
+        log(f"  pair list of the cascade's {what}: {int(n)} of "
+            f"{m.numel()} pairs ({100 * int(n) / m.numel():.2f} %) == "
+            f"pair_list_plain")
+    Q = torch.as_tensor(X_test, device=DEVICE)
+    C, bsp, T = eng.corpus, eng.bsp, Q.shape[1]
+    Ll = gb.gram_spdtw_block(Q, C, bsp, T_orig=T, n_prefix=n_prefix,
+                             alive0=alive2)
+    Lbp = gb.gram_prefix_bound(Q, C, bsp, n_prefix, T_orig=T, block_a=500)
+    ab, rel = diff(Ll[alive2], Lbp[alive2])
+    require(torch.equal(Ll[alive2], Lbp[alive2]),
+            f"K1 prefix({n_prefix}) on the alive2 list != gram_prefix_bound "
+            f"(rel {rel})")
+    require(bool((Ll[~alive2] >= 1e29).all()),
+            "K1 prefix on the alive2 list: unlisted pairs not +INF")
+    thr = torch.quantile(G.double(), 0.3, dim=1).float()
+    El = gb.gram_spdtw_block(Q, C, bsp, T_orig=T, thresholds=thr,
+                             alive0=alive)
+    Eg = gb.gram_spdtw_block(Q, C, bsp, T_orig=T, thresholds=thr)
+    require(torch.equal(El[alive], Eg[alive]),
+            "K1 thresholded on the alive list != K1's thresholded grid")
+    require(bool((El[~alive] >= 1e29).all()),
+            "K1 on the alive list: unlisted pairs not +INF")
+    log(f"  K1 prefix({n_prefix}) on the alive2 list == gram_prefix_bound, "
+        f"thresholded on the alive list == K1's grid, on the listed "
+        f"pairs, bit for bit (max abs {ab:.3g})")
+    return alive2
 
 
 def _theta_sweep(eng, ds, dtw_tiles, dtw_ms):
@@ -1628,8 +1713,10 @@ ANOMALY_SKETCH_R, ANOMALY_N_CAL, ANOMALY_WINDOW = 16, 256, 64
 AUC_LIMIT = 0.9
 # the kernels each part of the serving path must launch
 SERVING_DEPENDS = {
-    "stream search": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
-    "load shapes": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+    "stream search": ("spdtw_tiles_gram", "spdtw_tiles_paired",
+                      "spdtw_pair_list"),
+    "load shapes": ("spdtw_tiles_gram", "spdtw_tiles_paired",
+                    "spdtw_pair_list"),
     "refresh": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
     "centroid refresh": ("spdtw_tiles_gram", "spdtw_tiles_paired",
                          "soft_tiles_stash", "soft_tiles_bwd"),
@@ -1945,8 +2032,10 @@ def _jobs():
 
 MULTI_DEPENDS = {
     "shards": (),
-    "sharded search": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
-    "sharded serving": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
+    "sharded search": ("spdtw_tiles_gram", "spdtw_tiles_paired",
+                       "spdtw_pair_list"),
+    "sharded serving": ("spdtw_tiles_gram", "spdtw_tiles_paired",
+                        "spdtw_pair_list"),
     "scenarios.run": ("spdtw_tiles_gram", "spdtw_tiles_paired"),
 }
 
@@ -4619,6 +4708,22 @@ def phase_timing(main):
                  "bound_by": b2_by})
     log(f"  K2 paired {B}: {ms2:.3f} ms (plain {plain2:.1f} ms, bound "
         f"{b2_ms:.4f} ms by {b2_by})")
+
+    # the pair list at the cascade's prefix mask (its plain version runs
+    # on the host: torch.nonzero on the card would read the count back)
+    m = main["alive2"]
+    ms3, (ids, count) = cuda_ms(lambda: gb.pair_list_cuda(m), reps=5,
+                                warmup=1)
+    mc = m.cpu()
+    plain3, (want, n) = cuda_ms(lambda: gb.pair_list_plain(mc))
+    require(torch.equal(ids[:int(n)].cpu(), want), "pair list at main shapes")
+    # cumsum: the mask in, the sums out; the kernel: both in, the ids out
+    M = m.numel()
+    b3_ms, b3_by = _bound_cells(0, 0, 0, 6 * M, 4 * M + 4 * int(n) + 4)
+    rows.append({"name": "spdtw_pair_list", "ms": ms3, "plain_ms": plain3,
+                 "max_abs_err": 0.0, "bound_ms": b3_ms, "bound_by": b3_by})
+    log(f"  pair list {Na}x{Nb} ({int(n)} set): {ms3:.3f} ms (plain, host, "
+        f"{plain3:.1f} ms, bound {b3_ms:.4f} ms by {b3_by})")
     return rows
 
 
@@ -4642,8 +4747,8 @@ def kernels_line(rows, launches):
 # an anonymous namespace)
 PORT_KERNEL = re.compile(
     r"^(void )?\(anonymous namespace\)::(banded|banded_thread|banded_wide|"
-    r"gram|narrow|paired|pairs_bwd|pairs_fwd|regs|thread|tiles_bwd|"
-    r"tiles_fwd|wavefront|wavefront_wide|wide)_kernel\b")
+    r"gram|narrow|pair_list|paired|pairs_bwd|pairs_fwd|regs|thread|"
+    r"tiles_bwd|tiles_fwd|wavefront|wavefront_wide|wide)_kernel\b")
 
 
 # profiles of one call: the profiler now and then loses a few device

@@ -35,7 +35,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "spdtw_tiles": {
         "spdtw_tiles_gram": (_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P,
-                             _I, _I, _I, _I, _I, _P, _P),
+                             _P, _I, _I, _I, _I, _I, _P, _P),
+        "spdtw_pair_list": (_P, _P, _I, _P, _P, _P),
         "spdtw_tiles_paired": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
                                _I, _I, _I, _P, _P),
     },

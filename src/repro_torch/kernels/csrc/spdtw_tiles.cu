@@ -1,5 +1,6 @@
 // Block-sparse SP-DTW tile engines for Hopper (sm_90a): the all-pairs Gram
-// (``spdtw_tiles_gram``) and the aligned-pair batch (``spdtw_tiles_paired``).
+// (``spdtw_tiles_gram``), the aligned-pair batch (``spdtw_tiles_paired``) and
+// the pair list of K1's list mode (``spdtw_pair_list``).
 //
 // What they replace.
 //   gram   <- src/repro/kernels/gram_block.py  _gram_spdtw_kernel
@@ -45,6 +46,23 @@
 // is per pair: a pair whose incoming edges all exceed its threshold skips
 // the tile and publishes +INF edges, which is exactly what its pruned sweep
 // would have produced.
+//
+// The cascade's launches (list mode). The 1-NN cascade runs K1 twice a
+// job, the prefix pass and the thresholded exact pass, each on a subset
+// of the Na x Nb grid (43.6 % and 33.7 % of TwoPatterns' pairs). Over the
+// full grid a settled pair stays in the step loop as a dead lane, and a
+// warp with a few live pairs takes as long as a full one. So K1 also
+// takes a dense list of flat pair ids (``pairs``, ascending, query-major)
+// and its length ``count`` in device memory: thread (or lane group) p
+// takes pairs[p], and dead lanes no longer hold warps there. The grid is
+// sized for Na * Nb; a block past the list's end returns at entry, so
+// the host never reads the count. The mode is a template flag (``L``) of
+// the same kernels, so the full grid's launches keep their code. Without
+// a list (the plain Gram, the DTW Gram, ``engine.gram``), K1 walks the
+// full grid as before. A pair's sweep is the same either way, so its
+// value is too. ``pair_list_kernel`` builds the list from a bool mask and
+// its prefix sum; it replaces no TPU kernel (the TPU's grid had no list)
+// and is bound by memory, a few bytes a pair.
 //
 // Floating point. The cost row and u = c + min(top, topleft) use the
 // _rn intrinsics, and the file is built with --fmad=false, so no multiply
@@ -428,58 +446,80 @@ __host__ __device__ constexpr size_t thread_smem_floats(int Tp, int d,
   return (size_t)nt * (Tp + S) + S * S + (D == 0 ? (size_t)nt * d * S : 0);
 }
 
-// K1 (gram) / K2 (!gram), one thread per pair.
-template <int S, int D>
+// K1 (gram) / K2 (!gram), one thread per pair. L (K1's list mode):
+// thread p takes the flat pair id pairs[p] for p < *count; the grid is
+// sized for Na * Nb, and a block whose first slot is at or past *count
+// leaves at entry, before any barrier. L is a template flag, not a
+// runtime test: a runtime test made the full grid's launches 6.5 % slower
+// (H100, 4000 x 1000 pairs, S = 16), the list's no faster.
+template <int S, int D, bool L>
 __global__ void thread_kernel(const float* __restrict__ A,
                               const float* __restrict__ B, int Na, int Nb,
                               int gram, int d, int Tp,
                               const int* __restrict__ meta, int n_steps,
                               const float* __restrict__ blocks,
                               const float* __restrict__ thr,
-                              const uint8_t* __restrict__ alive0, int prune,
+                              const int* __restrict__ pairs,
+                              const int* __restrict__ count, int prune,
                               int g_out, int r, int prefix,
                               float* __restrict__ out) {
   extern __shared__ float smem[];
   const int nt = blockDim.x, slot = threadIdx.x;
-  const long long P = gram ? (long long)Na * Nb : (long long)Na;
+  long long P;
+  if constexpr (L) {
+    P = (long long)__ldg(count);
+    if ((long long)blockIdx.x * nt >= P) return;
+  } else {
+    P = gram ? (long long)Na * Nb : (long long)Na;
+  }
   const long long p = (long long)blockIdx.x * nt + slot;
   const bool real = p < P;
-  const long long q = real ? p : P - 1;
+  long long q;
+  if constexpr (L) q = real ? (long long)__ldg(pairs + p) : 0;
+  else q = real ? p : P - 1;
   const long long a = gram ? q / Nb : q;
   const long long b = gram ? q % Nb : q;
   float* row_edge = smem;
   float* col = row_edge + (size_t)nt * Tp;
   float* ws = col + (size_t)nt * S;
   float* ysh = ws + S * S;
-  bool alive = real;
-  if (real && alive0 != nullptr) alive = alive0[p] != 0;
   const float v = sweep_thread<S, D>(
       A + a * d * Tp, B + b * d * Tp, d, Tp, meta, n_steps, blocks,
-      thr ? thr[a] : kInf, alive, prune != 0, g_out, r, prefix != 0,
+      thr ? thr[a] : kInf, real, prune != 0, g_out, r, prefix != 0,
       row_edge, col, ysh, ws, slot, nt);
-  if (real) out[p] = v;
+  if (real) out[q] = v;
 }
 
 template <int S, int D>
 int thread_sd(const float* A, const float* B, int Na, int Nb, int gram,
               int d, int Tp, const int* meta, int n_steps,
-              const float* blocks, const float* thr, const uint8_t* alive0,
-              int prune, int g_out, int r, int prefix, int nt, float* out,
-              cudaStream_t stream) {
+              const float* blocks, const float* thr, const int* pairs,
+              const int* count, int prune, int g_out, int r, int prefix,
+              int nt, float* out, cudaStream_t stream) {
   const size_t smem = thread_smem_floats<S, D>(Tp, d, nt) * 4;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        thread_kernel<S, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        thread_kernel<S, D, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(
+        thread_kernel<S, D, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long P = gram ? (long long)Na * Nb : (long long)Na;
   const long long grid = (P + nt - 1) / nt;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  thread_kernel<S, D><<<dim3((unsigned)grid), dim3(nt), smem, stream>>>(
-      A, B, Na, Nb, gram, d, Tp, meta, n_steps, blocks, thr, alive0, prune,
-      g_out, r, prefix, out);
+  const dim3 g((unsigned)grid), t(nt);
+  if (pairs)
+    thread_kernel<S, D, true><<<g, t, smem, stream>>>(
+        A, B, Na, Nb, gram, d, Tp, meta, n_steps, blocks, thr, pairs, count,
+        prune, g_out, r, prefix, out);
+  else
+    thread_kernel<S, D, false><<<g, t, smem, stream>>>(
+        A, B, Na, Nb, gram, d, Tp, meta, n_steps, blocks, thr, pairs, count,
+        prune, g_out, r, prefix, out);
   return (int)cudaGetLastError();
 }
 
@@ -488,12 +528,13 @@ int thread_sd(const float* A, const float* B, int Na, int Nb, int gram,
 template <int S>
 int thread_s(const float* A, const float* B, int Na, int Nb, int gram,
              int d, int Tp, const int* meta, int n_steps, const float* blocks,
-             const float* thr, const uint8_t* alive0, int prune, int g_out,
-             int r, int prefix, int nt, float* out, cudaStream_t stream) {
+             const float* thr, const int* pairs, const int* count, int prune,
+             int g_out, int r, int prefix, int nt, float* out,
+             cudaStream_t stream) {
   const int D = (d <= 3 && S * d <= 64) ? d : 0;
 #define THREAD(DD) thread_sd<S, DD>(A, B, Na, Nb, gram, d, Tp, meta, \
-                                    n_steps, blocks, thr, alive0, prune, \
-                                    g_out, r, prefix, nt, out, stream)
+                                    n_steps, blocks, thr, pairs, count, \
+                                    prune, g_out, r, prefix, nt, out, stream)
   switch (D) {
     case 1: return THREAD(1);
     case 2: return THREAD(2);
@@ -506,18 +547,18 @@ int thread_s(const float* A, const float* B, int Na, int Nb, int gram,
 int thread_route(const float* A, const float* B, int Na, int Nb, int gram,
                  int d, int Tp, const int* meta, int n_steps,
                  const float* blocks, int S, const float* thr,
-                 const uint8_t* alive0, int prune, int g_out, int r,
-                 int prefix, int nt, float* out, cudaStream_t st) {
+                 const int* pairs, const int* count, int prune, int g_out,
+                 int r, int prefix, int nt, float* out, cudaStream_t st) {
   if (nt < 1 || nt > 1024 || d < 1) return (int)cudaErrorInvalidValue;
   switch (S) {
     case 8: return thread_s<8>(A, B, Na, Nb, gram, d, Tp, meta, n_steps,
-                               blocks, thr, alive0, prune, g_out, r, prefix,
-                               nt, out, st);
+                               blocks, thr, pairs, count, prune, g_out, r,
+                               prefix, nt, out, st);
     case 16: return thread_s<16>(A, B, Na, Nb, gram, d, Tp, meta, n_steps,
-                                 blocks, thr, alive0, prune, g_out, r,
+                                 blocks, thr, pairs, count, prune, g_out, r,
                                  prefix, nt, out, st);
     case 32: return thread_s<32>(A, B, Na, Nb, gram, d, Tp, meta, n_steps,
-                                 blocks, thr, alive0, prune, g_out, r,
+                                 blocks, thr, pairs, count, prune, g_out, r,
                                  prefix, nt, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -543,28 +584,34 @@ __device__ __forceinline__ Lanes lanes() {
   return o;
 }
 
-// K1: pair p is (A row p / Nb, B row p % Nb).
-template <int S>
+// K1: pair id q is (A row q / Nb, B row q % Nb); group p takes q = p, or,
+// in list mode (L), q = pairs[p] for p < *count.
+template <int S, bool L>
 __global__ void __launch_bounds__(kWarps * 32)
 gram_kernel(const float* __restrict__ A, const float* __restrict__ B,
             int Na, int Nb, int d, int Tp, const int* __restrict__ meta,
             int n_steps, const float* __restrict__ blocks,
-            const float* __restrict__ thr,
-            const uint8_t* __restrict__ alive0, int prune, int g_out, int r,
+            const float* __restrict__ thr, const int* __restrict__ pairs,
+            const int* __restrict__ count, int prune, int g_out, int r,
             int prefix, float* __restrict__ out) {
   extern __shared__ float smem[];
   const Lanes ln = lanes<S>();
   const long long p = (long long)blockIdx.x * Geo<S>::PPB + ln.slot;
-  if (p >= (long long)Na * Nb) return;
-  const long long a = p / Nb, b = p % Nb;
+  long long q = p;
+  if constexpr (L) {
+    if (p >= (long long)__ldg(count)) return;
+    q = __ldg(pairs + p);
+  } else {
+    if (p >= (long long)Na * Nb) return;
+  }
+  const long long a = q / Nb, b = q % Nb;
   float* row_edge = smem + (size_t)ln.slot * (Tp + Geo<S>::EXTRA);
   float* col_edge = row_edge + Tp;
   const float v = sweep_pair<S>(
       A + a * d * Tp, B + b * d * Tp, d, Tp, meta, n_steps, blocks,
-      thr ? thr[a] : kInf, alive0 ? alive0[p] != 0 : true, prune != 0,
-      g_out, r, prefix != 0, row_edge, col_edge, col_edge + S,
-      col_edge + 2 * S, ln.lane, ln.mask);
-  if (ln.lane == 0) out[p] = v;
+      thr ? thr[a] : kInf, true, prune != 0, g_out, r, prefix != 0,
+      row_edge, col_edge, col_edge + S, col_edge + 2 * S, ln.lane, ln.mask);
+  if (ln.lane == 0) out[q] = v;
 }
 
 // K2: pair p is (X row p, Y row p).
@@ -591,22 +638,45 @@ paired_kernel(const float* __restrict__ X, const float* __restrict__ Y,
 template <int S>
 int gram_s(const float* A, const float* B, int Na, int Nb, int d, int Tp,
            const int* meta, int n_steps, const float* blocks,
-           const float* thr, const uint8_t* alive0, int prune, int g_out,
-           int r, int prefix, float* out, cudaStream_t stream) {
+           const float* thr, const int* pairs, const int* count, int prune,
+           int g_out, int r, int prefix, float* out, cudaStream_t stream) {
   const size_t smem = (size_t)Geo<S>::PPB * (Tp + Geo<S>::EXTRA) * 4;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        gram_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gram_kernel<S, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(
+        gram_kernel<S, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long grid =
       ((long long)Na * Nb + Geo<S>::PPB - 1) / Geo<S>::PPB;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  gram_kernel<S><<<dim3((unsigned)grid), dim3(kWarps * 32), smem,
-                   stream>>>(A, B, Na, Nb, d, Tp, meta, n_steps, blocks, thr,
-                             alive0, prune, g_out, r, prefix, out);
+  const dim3 g((unsigned)grid), t(kWarps * 32);
+  if (pairs)
+    gram_kernel<S, true><<<g, t, smem, stream>>>(
+        A, B, Na, Nb, d, Tp, meta, n_steps, blocks, thr, pairs, count, prune,
+        g_out, r, prefix, out);
+  else
+    gram_kernel<S, false><<<g, t, smem, stream>>>(
+        A, B, Na, Nb, d, Tp, meta, n_steps, blocks, thr, pairs, count, prune,
+        g_out, r, prefix, out);
   return (int)cudaGetLastError();
+}
+
+// The pair list of a bool mask: flat id i goes to slot csum[i] - 1, where
+// csum is the mask's inclusive prefix sum, so the ids come out ascending;
+// the last thread writes the count. One thread per mask entry.
+__global__ void pair_list_kernel(const uint8_t* __restrict__ mask,
+                                 const int* __restrict__ csum, int n,
+                                 int* __restrict__ pairs,
+                                 int* __restrict__ count) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (mask[i]) pairs[csum[i] - 1] = (int)i;
+  if (i == n - 1) *count = csum[i];
 }
 
 template <int S>
@@ -632,7 +702,10 @@ int paired_s(const float* X, const float* Y, int P, int d, int Tp,
 
 extern "C" {
 
-// (Na, Nb) Gram. thr (Na,) and alive0 (Na*Nb, bool bytes) may be null.
+// (Na, Nb) Gram. thr (Na,) may be null. pairs (up to Na*Nb flat pair
+// ids) and count (1 int, on the device) may be null: with them, only the
+// first *count listed pairs are computed and written, every other entry
+// of out is left as it is; without, every pair.
 // prefix != 0: run the n_steps given, skip result capture, and write
 // min(row_edge) per pair (the cascade's prefix bound).
 // nt > 0: one thread per pair, nt threads per block (S in {8, 16, 32});
@@ -640,26 +713,41 @@ extern "C" {
 int spdtw_tiles_gram(const float* A, const float* B, int Na, int Nb, int d,
                      int Tp, const int* meta, int n_steps,
                      const float* blocks, int S, const float* thr,
-                     const uint8_t* alive0, int prune, int g_out, int r,
-                     int prefix, int nt, float* out, void* stream) {
+                     const int* pairs, const int* count, int prune,
+                     int g_out, int r, int prefix, int nt, float* out,
+                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if ((pairs == nullptr) != (count == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (nt > 0)
     return thread_route(A, B, Na, Nb, 1, d, Tp, meta, n_steps, blocks, S,
-                        thr, alive0, prune, g_out, r, prefix, nt, out, st);
+                        thr, pairs, count, prune, g_out, r, prefix, nt, out,
+                        st);
+#define GRAM(SS) gram_s<SS>(A, B, Na, Nb, d, Tp, meta, n_steps, blocks, thr, \
+                            pairs, count, prune, g_out, r, prefix, out, st)
   switch (S) {
-    case 8: return gram_s<8>(A, B, Na, Nb, d, Tp, meta, n_steps, blocks,
-                             thr, alive0, prune, g_out, r, prefix, out, st);
-    case 16: return gram_s<16>(A, B, Na, Nb, d, Tp, meta, n_steps, blocks,
-                               thr, alive0, prune, g_out, r, prefix, out, st);
-    case 32: return gram_s<32>(A, B, Na, Nb, d, Tp, meta, n_steps, blocks,
-                               thr, alive0, prune, g_out, r, prefix, out, st);
-    case 64: return gram_s<64>(A, B, Na, Nb, d, Tp, meta, n_steps, blocks,
-                               thr, alive0, prune, g_out, r, prefix, out, st);
-    case 128: return gram_s<128>(A, B, Na, Nb, d, Tp, meta, n_steps, blocks,
-                                 thr, alive0, prune, g_out, r, prefix, out,
-                                 st);
+    case 8: return GRAM(8);
+    case 16: return GRAM(16);
+    case 32: return GRAM(32);
+    case 64: return GRAM(64);
+    case 128: return GRAM(128);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef GRAM
+}
+
+// The ascending flat ids of the n set entries of mask (bool bytes) into
+// pairs (n ints), their number into count (1 int), both on the device;
+// csum (n ints) is the mask's inclusive prefix sum. Nothing is read back.
+int spdtw_pair_list(const uint8_t* mask, const int* csum, int n, int* pairs,
+                    int* count, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  constexpr int kThreads = 256;
+  pair_list_kernel<<<dim3((unsigned)(((long long)n + kThreads - 1) /
+                                     kThreads)),
+                     dim3(kThreads), 0, (cudaStream_t)stream>>>(
+      mask, csum, n, pairs, count);
+  return (int)cudaGetLastError();
 }
 
 // (P,) aligned pairs. thr (P,) may be null.
@@ -670,7 +758,7 @@ int spdtw_tiles_paired(const float* X, const float* Y, int P, int d, int Tp,
   cudaStream_t st = (cudaStream_t)stream;
   if (nt > 0)
     return thread_route(X, Y, P, P, 0, d, Tp, meta, n_steps, blocks, S, thr,
-                        nullptr, prune, g_out, r, 0, nt, out, st);
+                        nullptr, nullptr, prune, g_out, r, 0, nt, out, st);
   switch (S) {
     case 8: return paired_s<8>(X, Y, P, d, Tp, meta, n_steps, blocks, thr,
                                prune, g_out, r, out, st);

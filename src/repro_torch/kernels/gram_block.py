@@ -18,8 +18,10 @@ path and the yardstick of the CUDA kernels):
                           ``n_prefix`` plan steps, min(row_edge).
 
 ``gram_spdtw_block`` is the wrapper of K1 (``spdtw_tiles_gram``): on CUDA
-tensors it launches the kernel (its prefix mode gives the stage-3 bound),
-on CPU tensors it runs the plain versions above.
+tensors it launches the kernel (its prefix mode gives the stage-3 bound;
+with a mask, its list mode runs only the pairs of the mask's
+``pair_list``), on CPU tensors it runs the plain versions above. ``pair_list`` turns a bool mask into that
+list (``pair_list_cuda``, with its plain twin ``pair_list_plain``).
 
 ``gram_log_krdtw_block`` is the wrapper of K3 (``krdtw_gram`` in
 ``csrc/krdtw_wavefront.cu``), the all-pairs log K_rdtw / K_rdtw_sc /
@@ -333,6 +335,64 @@ def gram_prefix_bound(A: torch.Tensor, B: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The pair list: the set entries of an (Na, Nb) mask as flat pair ids
+# ---------------------------------------------------------------------------
+
+def pair_list_plain(mask: torch.Tensor):
+    """Plain version of ``pair_list_cuda``, for CPU tensors only: the
+    ascending flat ids of ``mask``'s set entries (int32, exactly that
+    many) and their number as a (1,) int32 tensor."""
+    if mask.device.type != "cpu":
+        raise ValueError("pair_list_plain takes CPU tensors")
+    ids = torch.nonzero(mask.reshape(-1))[:, 0].to(torch.int32)
+    return ids, torch.tensor([ids.numel()], dtype=torch.int32)
+
+
+def pair_list_cuda(mask: torch.Tensor):
+    """The pair list of a bool mask on a CUDA device: the
+    mask's inclusive prefix sum (``torch.cumsum``), then
+    ``pair_list_kernel`` puts each set entry's flat id at its rank.
+    Returns (ids, count): ids (mask.numel(),) int32, whose first ``count``
+    entries are the set ids in ascending order (the rest unspecified), and
+    count (1,) int32. The count stays on the device: nothing is read back
+    or synchronised."""
+    dev = mask.device
+    if dev.type != "cuda":
+        raise ValueError("pair_list_cuda takes CUDA tensors")
+    flat = mask.reshape(-1)
+    n = flat.numel()
+    ids = torch.empty((n,), dtype=torch.int32, device=dev)
+    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return ids, count
+    csum = torch.cumsum(flat, 0, dtype=torch.int32)
+    rc = _build.library("spdtw_tiles").spdtw_pair_list(
+        flat.data_ptr(), csum.data_ptr(), n, ids.data_ptr(),
+        count.data_ptr(), _stream_ptr(dev))
+    _build.LAUNCHES["spdtw_pair_list"] += 1
+    _build.check(rc, "spdtw_pair_list")
+    return ids, count
+
+
+def pair_list(mask: torch.Tensor):
+    """The set pairs of an (Na, Nb) bool mask as a list of flat pair ids
+    a * Nb + b, ascending (query-major), and their count: the operand of
+    K1's list mode (``gram_spdtw_cuda(alive0=)``). CUDA tensors launch
+    ``pair_list_cuda`` (ids sized Na * Nb, the count on the device); CPU
+    tensors run ``pair_list_plain``."""
+    if mask.dtype != torch.bool:
+        raise ValueError(f"mask has dtype {mask.dtype}, expected torch.bool")
+    if mask.ndim != 2:
+        raise ValueError(f"mask has shape {tuple(mask.shape)}, expected "
+                         f"(Na, Nb)")
+    if mask.numel() > 2 ** 31 - 1:
+        raise ValueError(f"{mask.numel()} pairs do not fit int32 ids")
+    if mask.is_cuda:
+        return pair_list_cuda(mask)
+    return pair_list_plain(mask)
+
+
+# ---------------------------------------------------------------------------
 # K1: the CUDA kernel and its wrapper
 # ---------------------------------------------------------------------------
 
@@ -340,12 +400,17 @@ def gram_spdtw_cuda(Ap: torch.Tensor, Bp: torch.Tensor,
                     bsp: BlockSparsePaths, *, d: int, g_out: int, r: int,
                     n_steps: int, thr: Optional[torch.Tensor] = None,
                     alive0: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None,
                     prefix: bool = False) -> torch.Tensor:
     """Launch K1 on tile-major operands: Ap (Na, d*Tp), Bp (Nb, d*Tp)
     float32 on one CUDA device; thr (Na,) float32 or None (turns pruning
-    on); alive0 (Na, Nb) bool or None. Runs the first ``n_steps`` plan
-    steps; ``prefix`` returns min(row_edge) instead of the result cell.
-    Returns (Na, Nb) on the current stream, without synchronising."""
+    on). Runs the first ``n_steps`` plan steps; ``prefix`` returns
+    min(row_edge) instead of the result cell. ``alive0`` ((Na, Nb) bool)
+    selects list mode: K1 runs on ``pair_list(alive0)`` and writes only
+    those pairs into ``out``, leaving its other entries as they are.
+    Without it, every pair. ``out`` is (Na, Nb) float32, a new
+    ``torch.empty`` if None. Returns ``out`` on the current stream,
+    without synchronising."""
     dev = Ap.device
     if dev.type != "cuda":
         raise ValueError("gram_spdtw_cuda takes CUDA tensors")
@@ -357,19 +422,24 @@ def gram_spdtw_cuda(Ap: torch.Tensor, Bp: torch.Tensor,
         _check_operand("thresholds", thr, (Na,), dev)
     if alive0 is not None:
         _check_operand("alive0", alive0, (Na, Nb), dev, torch.bool)
+    if out is None:
+        out = torch.empty((Na, Nb), dtype=torch.float32, device=dev)
+    else:
+        _check_operand("out", out, (Na, Nb), dev)
     meta, blocks = bsp.on_device(dev)
     if not 0 < n_steps <= meta.shape[0]:
         raise ValueError(f"n_steps {n_steps} outside (0, {meta.shape[0]}]")
-    out = torch.empty((Na, Nb), dtype=torch.float32, device=dev)
     if Na * Nb == 0:
         return out
+    ids, count = (None, None) if alive0 is None else pair_list(alive0)
     geo = tile_geometry(bsp.tile, d, Tp)
     lib = _build.library("spdtw_tiles")
     rc = lib.spdtw_tiles_gram(
         Ap.data_ptr(), Bp.data_ptr(), Na, Nb, d, Tp, meta.data_ptr(),
         n_steps, blocks.data_ptr(), bsp.tile,
         None if thr is None else thr.data_ptr(),
-        None if alive0 is None else alive0.data_ptr(),
+        None if ids is None else ids.data_ptr(),
+        None if count is None else count.data_ptr(),
         int(thr is not None), g_out, r, int(prefix), geo["threads"],
         out.data_ptr(), _stream_ptr(dev))
     _build.LAUNCHES["spdtw_tiles_gram"] += 1
@@ -381,7 +451,8 @@ def gram_spdtw_block(A: torch.Tensor, B: torch.Tensor, bsp: BlockSparsePaths,
                      T_orig: Optional[int] = None,
                      thresholds: Optional[torch.Tensor] = None,
                      alive0: Optional[torch.Tensor] = None,
-                     n_prefix: Optional[int] = None) -> torch.Tensor:
+                     n_prefix: Optional[int] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All-pairs SP-DTW Gram matrix through K1.
 
     A: (Na, T) or (Na, T, d); B likewise. Returns (Na, Nb) SP-DTW values
@@ -392,8 +463,19 @@ def gram_spdtw_block(A: torch.Tensor, B: torch.Tensor, bsp: BlockSparsePaths,
     prefix mode: the first ``n_prefix`` plan steps, no result capture,
     and min(row_edge) per pair (``gram_prefix_bound``). CUDA tensors
     launch the kernel; CPU tensors run the plain versions.
+
+    On CUDA, ``alive0`` (in either mode) runs K1 in list mode: one thread
+    (or lane group) per pair of ``pair_list(alive0)``, so the pairs the
+    mask leaves out hold no warps as dead lanes, and the list's count is
+    never read on the host. Only those pairs are written, into ``out``
+    ((Na, Nb) float32, CUDA only) or, without it, into a new +INF tensor;
+    the other entries of ``out`` are left as they are. A listed pair's
+    value is bit-identical to the full grid's and to
+    ``gram_spdtw_scan``'s.
     """
     if not A.is_cuda:
+        if out is not None:
+            raise ValueError("out is K1's list mode: CUDA tensors only")
         if n_prefix is not None:
             return gram_prefix_bound(A, B, bsp, n_prefix, T_orig=T_orig)
         return gram_spdtw_scan(A, B, bsp, T_orig=T_orig,
@@ -408,24 +490,33 @@ def gram_spdtw_block(A: torch.Tensor, B: torch.Tensor, bsp: BlockSparsePaths,
         raise ValueError(f"series length {T_orig} exceeds the plan's {bsp.T}")
     S = bsp.tile
     meta = bsp.plan()
+    al = None if alive0 is None else \
+        alive0.to(device=dev).bool().reshape(Na, Nb).contiguous()
+    if out is None:
+        out = torch.empty((Na, Nb), dtype=torch.float32, device=dev) \
+            if al is None else \
+            torch.full((Na, Nb), INF, dtype=torch.float32, device=dev)
+
+    def settled(v):     # every pair K1 would run reads v
+        return out.fill_(v) if al is None else out.masked_fill_(al, v)
+
     Ap, Bp = to_tile_major(A, S, bsp.T), to_tile_major(B.to(dev), S, bsp.T)
     if n_prefix is not None:
         n_prefix = min(n_prefix, meta.shape[0])
         if n_prefix <= 0:
-            return torch.zeros((Na, Nb), dtype=torch.float32, device=dev)
+            return settled(0.0)
         return gram_spdtw_cuda(Ap, Bp, bsp, d=d, g_out=-2, r=0,
-                               n_steps=n_prefix, prefix=True)
+                               n_steps=n_prefix, alive0=al, out=out,
+                               prefix=True)
     g_out = result_tile_step(meta, S, T_orig)
     if g_out < 0:   # corner cell outside the support: no admissible path
-        return torch.full((Na, Nb), INF, dtype=torch.float32, device=dev)
+        return settled(INF)
     thr = None if thresholds is None else \
         thresholds.to(device=dev, dtype=torch.float32).reshape(Na) \
         .contiguous()
-    al = None if alive0 is None else \
-        alive0.to(device=dev).bool().reshape(Na, Nb).contiguous()
     return gram_spdtw_cuda(Ap, Bp, bsp, d=d, g_out=g_out,
                            r=(T_orig - 1) % S, n_steps=meta.shape[0],
-                           thr=thr, alive0=al)
+                           thr=thr, alive0=al, out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -243,9 +243,13 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
     exact distance of its ``seed_k`` best-bounded candidates; (3) the
     truncated prefix-DP bound over the first ``prefix_frac`` of the tile
     rows; (4) the exact DP on the survivors with early abandoning. On
-    ``cuda`` stage 3 is K1's prefix mode, the seeds run K2, and stage 4
-    runs K1 with the thresholds and the survivor mask; on ``scan`` stage 4
-    gathers the survivors through the plain paired engine. All bounds are
+    ``cuda`` the seeds run K2, stage 3 K1's prefix mode on the list of the
+    pairs stages 1-2 left (on every pair where stats or counts are asked
+    for: their ``stage3_pruned`` is the bound's over all pairs), and
+    stage 4 K1 with the thresholds on the survivors' list, written
+    straight into the distances; the lists' counts stay on the device.
+    On ``scan`` stage 4 gathers the survivors through the plain paired
+    engine. All bounds are
     admissible and thresholds are exact distances of real candidates, so
     the neighbours equal a full Gram argmin bit for bit, first index on
     ties. Returns (nn int32, nn_dist[, stats]); ``return_stats="counts"``
@@ -320,14 +324,10 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
         prefix_pairs = 0
         if n_prefix > 0 and impl_r != "dense":
             with trace.span("cascade.prefix"):
-                if impl_r == "cuda":
-                    lb3 = gram_spdtw_block(Q, C, index.bsp, T_orig=T,
-                                           n_prefix=n_prefix)
-                else:
-                    lb3 = gram_prefix_bound(Q, C, index.bsp, n_prefix,
-                                            T_orig=T, block_a=block_a)
+                lb3, prefix_pairs = _prefix_bound(
+                    Q, C, index.bsp, n_prefix, alive2, impl=impl_r,
+                    block_a=block_a, listed=not return_stats)
                 alive = alive2 & (lb3 <= thr[:, None])
-            prefix_pairs = Nq * Nc
         else:
             lb3 = lb2
             alive = alive2
@@ -346,6 +346,10 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
                 if len(qi):
                     D[qi, ci] = _pair_dp(Q[qi], C[ci], index, impl_r,
                                          thresholds=thr[qi])
+            elif impl_r == "cuda":
+                # K1 on the survivors' list, straight into D
+                gram_spdtw_block(Q, C, index.bsp, T_orig=T, thresholds=thr,
+                                 alive0=alive, out=D)
             else:
                 G_ab = _spdtw_gram(Q, C, bsp=index.bsp,
                                    weights=index.weights, impl=impl_r,
@@ -365,6 +369,8 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
                                        if cand is not None else 0)),
             prefix_pairs=prefix_pairs, bsp=index.bsp, n_prefix=n_prefix,
             abandoned=alive & ((D if G_ab is None else G_ab) >= 1e29),
+            # lb3 holds every pair's bound here: with return_stats set,
+            # _prefix_bound ran on the whole grid
             pruned=(lb1 > th, lb2 > th, lb3 > th) if return_stats else ())
         return _cascade_out(nn, nnd, counts, return_stats, {
             "n_queries": Nq, "n_candidates": Nc, "seed_k": seed_k,
@@ -372,8 +378,28 @@ def _knn_cascade(Q: torch.Tensor, index: CorpusIndex, *, impl: str = "auto",
             "prefix_tiles": n_prefix, "plan_tiles": index.bsp.n_active})
 
 
+def _prefix_bound(Q: torch.Tensor, C: torch.Tensor, bsp, n_prefix: int,
+                  alive2: torch.Tensor, *, impl: str, block_a: int,
+                  listed: bool):
+    """The cascades' stage-3 bound (Nq, Nc) and the number of pairs it
+    was given. On ``cuda`` with ``listed``, K1's prefix mode runs on the
+    list of the ``alive2`` pairs only, the other entries read +INF, and
+    the number is None: ``_cascade_counts`` takes ``alive2``'s. Otherwise
+    every pair: K1's prefix mode over the grid, or ``gram_prefix_bound``
+    on ``scan``. The stats' ``stage3_pruned`` counts the bound over every
+    pair, so a caller that asks for stats or counts passes ``listed``
+    False."""
+    if impl != "cuda":
+        return gram_prefix_bound(Q, C, bsp, n_prefix, T_orig=Q.shape[1],
+                                 block_a=block_a), alive2.numel()
+    lb = gram_spdtw_block(Q, C, bsp, T_orig=Q.shape[1], n_prefix=n_prefix,
+                          alive0=alive2 if listed else None)
+    return lb, None if listed else alive2.numel()
+
+
 def _cascade_counts(alive2: torch.Tensor, alive: torch.Tensor, *,
-                    seed_pairs: int, prefix_pairs: int, bsp, n_prefix: int,
+                    seed_pairs: int, prefix_pairs: Optional[int], bsp,
+                    n_prefix: int,
                     abandoned: Optional[torch.Tensor] = None,
                     pruned=()) -> dict:
     """The cascade's pair counts, computed once for the stats and the
@@ -388,7 +414,8 @@ def _cascade_counts(alive2: torch.Tensor, alive: torch.Tensor, *,
                   masks ``pruned`` (``return_stats`` only);
     and, only while the recorder is on (no stats read them):
     alive2        the pairs left after the bounds and the seeds;
-    prefix_pairs  the pairs the prefix pass evaluates (all, or 0);
+    prefix_pairs  the pairs the prefix pass evaluates: all, 0, or (None
+                  given) the ``alive2`` pairs of its list;
     prefix_cells  the support cells of the first ``n_prefix`` plan steps
                   of ``bsp``, over those pairs.
     """
@@ -396,8 +423,11 @@ def _cascade_counts(alive2: torch.Tensor, alive: torch.Tensor, *,
               "dp_pairs": alive.sum(),
               "abandoned": 0 if abandoned is None else abandoned.sum()}
     if trace.ON:
+        n_alive2 = alive2.sum()
+        if prefix_pairs is None:
+            prefix_pairs = n_alive2
         counts.update(
-            alive2=alive2.sum(), prefix_pairs=prefix_pairs,
+            alive2=n_alive2, prefix_pairs=prefix_pairs,
             prefix_cells=prefix_pairs * prefix_cell_count(bsp, n_prefix))
     for i, m in enumerate(pruned, 1):
         counts[f"stage{i}_pruned"] = m.sum()
@@ -459,7 +489,8 @@ def _krdtw_knn_cascade(Q: torch.Tensor, index: CorpusIndex, *,
     Seeds (``seed_k`` best-bounded candidates per query, a stable sort:
     the lower index first among equal bounds) and survivors run K4 on
     ``cuda``, the prefix bound K1's prefix mode over the unit-weight
-    plan. Thresholds are exact dissimilarities of real candidates and the
+    plan, on the pairs left after the seeds as in ``_knn_cascade``.
+    Thresholds are exact dissimilarities of real candidates and the
     bound is admissible, so the neighbours equal the ``-gram_log``
     argmin bit for bit (K3 and K4 agree bit for bit). As in the
     reference, ``stage1_prune`` is computed from the stage-2 bound.
@@ -514,16 +545,12 @@ def _krdtw_knn_cascade(Q: torch.Tensor, index: CorpusIndex, *,
         prefix_pairs = 0
         if n_prefix > 0 and impl_r != "dense":
             with trace.span("cascade.prefix"):
-                if impl_r == "cuda":
-                    pb = gram_spdtw_block(Q, C, index.bsp, T_orig=T,
-                                          n_prefix=n_prefix)
-                else:
-                    pb = gram_prefix_bound(Q, C, index.bsp, n_prefix,
-                                           T_orig=T, block_a=block_a)
+                pb, prefix_pairs = _prefix_bound(
+                    Q, C, index.bsp, n_prefix, alive2, impl=impl_r,
+                    block_a=block_a, listed=not return_stats)
                 lb3 = _bounds.lb_log_krdtw(torch.maximum(b1, pb), b2, nu,
                                            index.log_s1, index.log_s2)
                 alive = alive2 & (lb3 <= thr[:, None])
-            prefix_pairs = Nq * Nc
         else:
             lb3 = lb2
             alive = alive2
@@ -545,6 +572,7 @@ def _krdtw_knn_cascade(Q: torch.Tensor, index: CorpusIndex, *,
         th = thr[:, None]
         pruned = ()
         if return_stats:
+            # lb3 holds every pair's bound: _prefix_bound ran on the grid
             m2 = lb2 > th
             pruned = (m2, m2, lb3 > th)
         counts = _cascade_counts(

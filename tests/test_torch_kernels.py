@@ -236,3 +236,183 @@ def test_cuda_kernels_match_plain_versions(cuda_device, S, d, T):
     after = _build.launch_counts()
     assert after["spdtw_tiles_gram"] == before["spdtw_tiles_gram"] + 3
     assert after["spdtw_tiles_paired"] == before["spdtw_tiles_paired"] + 1
+
+
+# ------------------------------------------------ K1's list mode (pairs)
+@pytest.mark.parametrize("share", [0.0, 0.35, 1.0])
+def test_pair_list_plain_matches_flatnonzero(share):
+    rng = np.random.default_rng(int(100 * share))
+    m = rng.random((37, 53)) < share
+    ids, count = t_gb.pair_list(torch.as_tensor(m))
+    assert ids.dtype == count.dtype == torch.int32
+    assert np.array_equal(ids.numpy(), np.flatnonzero(m))
+    assert count.tolist() == [int(m.sum())]
+    assert torch.equal(t_gb.pair_list_plain(torch.as_tensor(m))[0], ids)
+
+
+def test_pair_list_checks_its_arguments():
+    m = torch.ones((3, 4), dtype=torch.bool)
+    with pytest.raises(ValueError, match="dtype"):
+        t_gb.pair_list(m.to(torch.uint8))
+    for bad in (m.reshape(-1), m[None]):
+        with pytest.raises(ValueError, match="shape"):
+            t_gb.pair_list(bad)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        t_gb.pair_list(m.to("meta"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_gb.pair_list_cuda(m)
+    # the list mode is K1's: the plain versions refuse it
+    tb = block_sparsify(_support(16, 0), tile=8)
+    A, B = torch.zeros((3, 16)), torch.zeros((4, 16))
+    with pytest.raises(ValueError, match="list mode"):
+        t_gb.gram_spdtw_block(A, B, tb, alive0=m, out=torch.zeros(3, 4))
+    with pytest.raises(ValueError, match="list mode"):
+        t_gb.gram_spdtw_block(A, B, tb, n_prefix=1, out=torch.zeros(3, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (3, 700), (61, 257), (4000, 1000)])
+@pytest.mark.parametrize("share", [0.0, 0.35, 1.0])
+def test_cuda_pair_list_matches_plain(cuda_device, shape, share):
+    rng = np.random.default_rng(shape[1] + int(100 * share))
+    m = torch.as_tensor(rng.random(shape) < share, device=cuda_device)
+    before = _build.launch_counts()["spdtw_pair_list"]
+    ids, count = t_gb.pair_list(m)
+    assert _build.launch_counts()["spdtw_pair_list"] == before + 1
+    assert ids.shape == (m.numel(),) and count.shape == (1,)
+    want, n = t_gb.pair_list_plain(m.cpu())
+    assert torch.equal(count.cpu(), n)
+    assert torch.equal(ids[:int(n)].cpu(), want)
+
+
+SENTINEL = -7.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,d,T,route", [(16, 1, 70, "thread"),
+                                         (16, 3, 70, "thread"),
+                                         (64, 1, 150, "lanes")])
+@pytest.mark.parametrize("share", [0.0, 0.35, 1.0])
+def test_cuda_k1_pair_list_matches_masked_k1(cuda_device, S, d, T, route,
+                                             share):
+    """K1 on a pair list (a mask, ``alive0``) equals the masked K1 on the
+    listed pairs: the full grid's values there (a pair's sweep does not
+    depend on the others'), the plain version under the same mask, and
+    leaves the rest of ``out`` as it was (+INF without ``out``)."""
+    from repro_torch.kernels.spdtw_block import tile_geometry
+    rng = np.random.default_rng(S + d + int(100 * share))
+    tb = block_sparsify(_support(T, S + d), tile=S)
+    assert tile_geometry(S, d, tb.T)["route"] == route
+    Na, Nb = 40, 37
+    A = torch.as_tensor(_series(rng, Na, T, d), device=cuda_device)
+    B = torch.as_tensor(_series(rng, Nb, T, d), device=cuda_device)
+    mask = torch.as_tensor(rng.random((Na, Nb)) < share, device=cuda_device)
+
+    def fresh():
+        return torch.full((Na, Nb), SENTINEL, device=cuda_device)
+
+    # thresholded exact mode
+    thr = torch.quantile(t_gb.gram_spdtw_block(A, B, tb), 0.4, dim=1)
+    grid = t_gb.gram_spdtw_block(A, B, tb, thresholds=thr)
+    plain = t_gb.gram_spdtw_scan(A, B, tb, thresholds=thr, alive0=mask)
+    out = fresh()
+    before = _build.launch_counts()
+    got = t_gb.gram_spdtw_block(A, B, tb, thresholds=thr, alive0=mask,
+                                out=out)
+    after = _build.launch_counts()
+    assert got is out
+    for k in ("spdtw_pair_list", "spdtw_tiles_gram"):
+        assert after[k] == before[k] + 1
+    assert torch.equal(got[mask], grid[mask])
+    assert torch.equal(got[mask], plain[mask])
+    assert (got[~mask] == SENTINEL).all()
+    # without out, into +INF: the masked K1, whole
+    assert torch.equal(t_gb.gram_spdtw_block(A, B, tb, thresholds=thr,
+                                             alive0=mask), plain)
+    # prefix mode
+    n_prefix = max(1, t_gb.prefix_tile_count(tb, 0.5, T))
+    lb = t_gb.gram_spdtw_block(A, B, tb, n_prefix=n_prefix)
+    assert torch.equal(lb, t_gb.gram_prefix_bound(A, B, tb, n_prefix))
+    got = t_gb.gram_spdtw_block(A, B, tb, n_prefix=n_prefix, alive0=mask,
+                                out=fresh())
+    assert torch.equal(got[mask], lb[mask])
+    assert (got[~mask] == SENTINEL).all()
+    assert torch.equal(t_gb.gram_spdtw_block(A, B, tb, n_prefix=n_prefix,
+                                             alive0=mask),
+                       torch.where(mask, lb, t_gb.INF))
+
+
+@pytest.mark.cuda
+def test_cuda_k1_pair_list_unreachable_corner(cuda_device):
+    w = np.zeros((16, 16), np.float32)
+    w[:8, :8] = 1.0              # the corner tile is inactive
+    tb = block_sparsify(w, tile=8)
+    rng = np.random.default_rng(3)
+    A = torch.as_tensor(_series(rng, 5, 16, 1), device=cuda_device)
+    B = torch.as_tensor(_series(rng, 6, 16, 1), device=cuda_device)
+    mask = torch.as_tensor(rng.random((5, 6)) < 0.5, device=cuda_device)
+    out = torch.full((5, 6), SENTINEL, device=cuda_device)
+    got = t_gb.gram_spdtw_block(A, B, tb, alive0=mask, out=out)
+    assert (got[mask] >= 1e29).all() and (got[~mask] == SENTINEL).all()
+    assert torch.equal(t_gb.gram_spdtw_block(A, B, tb, alive0=mask),
+                       t_gb.gram_spdtw_scan(A, B, tb, alive0=mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", ["spdtw", "sp_krdtw"])
+def test_cuda_cascade_on_pair_lists(cuda_device, fam):
+    """The cascades on the card run K1's prefix and exact passes on pair
+    lists (the prefix pass on the whole grid where stats or counts are
+    asked for, whose ``stage3_pruned`` needs the bound on every pair):
+    the answers equal the full Gram argmin in every mode, the survivors
+    and stats agree across modes, and the recorder counts the prefix
+    pass's pairs as the list's length."""
+    from repro_torch import trace
+    from repro_torch.core.engine import fit
+    from repro_torch.core.spec import MeasureSpec
+    g = torch.Generator().manual_seed(7)
+    X = torch.randn(300, 64, generator=g).cumsum(dim=1)
+    Q = torch.randn(120, 64, generator=g).cumsum(dim=1)
+    eng = fit(MeasureSpec(family=fam, support="learned", theta=2.0), X,
+              device=cuda_device)
+    D = eng.gram(Q)
+    want_nn = torch.argmin(D, dim=1).to(torch.int32)
+    want_d = D.gather(1, want_nn[:, None].long())[:, 0]
+    before = _build.launch_counts()
+    nn0, d0 = eng.knn(Q)
+    after = _build.launch_counts()
+    assert after["spdtw_tiles_gram"] - before["spdtw_tiles_gram"] == \
+        (2 if fam == "spdtw" else 1)
+    assert after["spdtw_pair_list"] - before["spdtw_pair_list"] == \
+        (2 if fam == "spdtw" else 1)
+    nn1, d1, raw = eng.knn(Q, return_stats="counts")
+    nn2, d2, st = eng.knn(Q, return_stats=True)
+    for nn, dd in ((nn0, d0), (nn1, d1), (nn2, d2)):
+        assert torch.equal(nn, want_nn) and torch.equal(dd, want_d)
+    total = st["n_queries"] * st["n_candidates"]
+    assert st["prefix_tiles"] > 0
+    assert int(raw["dp_pairs"]) + raw["seed_pairs"] == st["dp_pairs"]
+    for i in (1, 2, 3):
+        assert int(raw[f"stage{i}_pruned"]) / total == st[f"stage{i}_prune"]
+    assert st["pre_dp_prune"] == 1.0 - st["dp_pairs"] / total
+    assert int(raw["abandoned"]) / total == st["dp_abandoned"]
+    trace.disable()
+    trace.reset()
+    try:
+        trace.enable()
+        seen = {}
+        for mode in (False, "counts", True):
+            trace.reset()
+            eng.knn(Q, return_stats=mode)
+            seen[mode] = {k.removeprefix("cascade."): int(v) for k, v in
+                          trace.snapshot()["counts"].items()}
+    finally:
+        trace.disable()
+        trace.reset()
+    for mode, c in seen.items():
+        assert c["alive2"] == seen[True]["alive2"]
+        assert c["dp_pairs"] == seen[True]["dp_pairs"] == \
+            int(raw["dp_pairs"])
+        assert c["prefix_pairs"] == (c["alive2"] if mode is False else total)
+        assert c["prefix_cells"] == c["prefix_pairs"] * \
+            t_gb.prefix_cell_count(eng.index.bsp, st["prefix_tiles"])
