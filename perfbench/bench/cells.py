@@ -2,15 +2,38 @@
 the checkout names each cell, configuration and metric; the files under
 ``perfbench/`` hold what each one is.
 
-- ``configs/<config>.json``: one deployment (split sizes, series length,
-  classes, the measure with its parameters, the limits of the
-  comparison);
+- ``configs/<config>.json``: one deployment: what it runs with its
+  parameters, its precision, its guarantees, what it ``assumed`` and
+  ``reduced``, the ``limits`` of the comparison, a ``source`` of at most
+  200 characters, and the data it runs on (below);
 - ``workloads/<cell>.json``: one cell (its configuration, traffic mix
   and its parameters, the driver it runs);
 - ``drivers/<driver>.py``: the port's entries a window drives;
 - ``traffic/<loop>.py``: the generator of a loop (``closed``,
   ``poisson``);
+- ``traffic/<data>.py``: a configuration's data source;
 - ``metrics/<metric>.py``: one reader per metric.
+
+A configuration names its data source as ``"data": "<module>"``; one
+that names none runs on ``two_patterns``, and carries that source's keys
+(``n_train``, ``T``, ``train_seed``, ``n_classes``, ``measure``). A data
+source has two functions:
+
+- ``cell_data(cfg, pool, seed) -> dict``: the host arrays of a run, from
+  the configuration and the run's seed (``bench/seeds.py``'s streams);
+  the driver's ``compare`` gets the same dict, so the plain reference
+  starts from what the program was given;
+- ``on_device(data, device) -> (setup_args, pool)``: the arguments of
+  ``Program.setup(*setup_args)`` (empty for a model whose weights come
+  from the configuration or the seed, with no train split) and the
+  request pool on the device: a tensor of rows, or a mapping of tensors
+  with one row a request, such as ragged token prompts padded beside
+  their lengths (``bench/pools.py``).
+
+A loop cuts its jobs or batches as runs of the pool's rows, and a
+driver's ``step`` takes one and returns a dict of numpy arrays, one row
+an answered request. ``Program.support()``, ``kept()`` and ``counters()``
+are optional: a program without a learnt support has none to report.
 
 A cell added as files and an entry of ``BENCHMARK.json`` is found with no
 edit of the harness.
@@ -90,3 +113,10 @@ def driver(name: str):
 
 def traffic(loop: str):
     return importlib.import_module(f"perfbench.traffic.{loop}")
+
+
+def data(cfg: dict):
+    """The data source configuration ``cfg`` names (``"data"``), by
+    default ``two_patterns``."""
+    return importlib.import_module(
+        f"perfbench.traffic.{cfg.get('data', 'two_patterns')}")

@@ -16,8 +16,7 @@ from pathlib import Path
 
 import torch
 
-from perfbench.bench import card, cells, trace as tracing
-from perfbench.traffic import two_patterns
+from perfbench.bench import card, cells, pools, seeds, trace as tracing
 
 # top-level module names no run may hold once its window has closed: JAX
 # and the JAX package the port was made from. Names are compared whole,
@@ -74,11 +73,11 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool, *,
     _log(f"card: {dev_info.get('smi', dev_info['kind'])}")
     torch.set_num_threads(min(4, torch.get_num_threads()))
 
-    data = two_patterns.cell_data(cfg, int(wl["pool_series"]), seed)
-    X = torch.as_tensor(data["X_train"], device=device)
-    pool = torch.as_tensor(data["pool"], device=device)
+    source = cells.data(cfg)
+    data = source.cell_data(cfg, int(wl["pool_series"]), seed)
+    setup_args, pool = source.on_device(data, device)
     prog = (program or drv.Program)(cfg, wl, device)
-    timings = prog.setup(X, data["y_train"])
+    timings = prog.setup(*setup_args)
     loop.warm(prog, pool, wl, seed)
     _sync(device)
     setup_s = process_age_s()
@@ -98,18 +97,20 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool, *,
     summary = tracing.summarize(prof, res["window_s"]) if trace else None
     mem_peak = torch.cuda.max_memory_allocated(device) \
         if device.type == "cuda" else 0
-    counters = prog.counters(pool[:int(wl.get("job_series",
-                                              wl.get("max_batch")))]) \
-        if trace else {}
-    support = prog.support()
-    kept = prog.kept()
+    counters = prog.counters(pools.rows(pool, 0, int(
+        wl.get("job_series", wl.get("max_batch"))))) \
+        if trace and hasattr(prog, "counters") else {}
+    # a program with no learnt support (a model made from the seed) has
+    # neither ``support`` nor ``kept``
+    support = prog.support() if hasattr(prog, "support") else None
+    kept = prog.kept() if hasattr(prog, "kept") else {}
     prog.release()
     del prog
     _free(device)
 
     # the comparison, once the program's state is freed
     t_ref = time.perf_counter()
-    rng = two_patterns.seed_rng(seed, two_patterns.SAMPLE)
+    rng = seeds.seed_rng(seed, seeds.SAMPLE)
     numbers = drv.compare(cfg, wl, data, res, support, kept, rng, device)
     numbers["unanswered"] = float(res["attempted"] - res["answered"])
     ref_s = time.perf_counter() - t_ref
@@ -142,7 +143,8 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool, *,
         result["records"] = summary["records"]
     result["run"] = {"seed": seed, "seconds": seconds,
                      "window_s": res["window_s"], "steps": res["steps"],
-                     "support_cells": support["cells"],
+                     **({"support_cells": support["cells"]}
+                        if support is not None else {}),
                      "reference_s": ref_s, "card": smi,
                      **{k: v for k, v in timings.items()}}
     result["checks"] = checks

@@ -33,16 +33,16 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
     from perfbench.bench import card, cells, stats
-    from perfbench.traffic import poisson, two_patterns
+    from perfbench.traffic import poisson
     cell = cells.Cell(ROOT, args.workload)
     card.require_cards(int(cell.entry["chips"]))
     device = torch.device("cuda")
     cfg, wl = cell.cfg, cell.wl
-    data = two_patterns.cell_data(cfg, int(wl["pool_series"]), args.seed)
-    pool = torch.as_tensor(data["pool"], device=device)
+    source = cells.data(cfg)
+    data = source.cell_data(cfg, int(wl["pool_series"]), args.seed)
+    setup_args, pool = source.on_device(data, device)
     prog = cells.driver(wl["driver"]).Program(cfg, wl, device)
-    prog.setup(torch.as_tensor(data["X_train"], device=device),
-               data["y_train"])
+    prog.setup(*setup_args)
     poisson.warm(prog, pool, wl, args.seed)
     for rate in args.rates:
         res = poisson.drive(prog, pool, {**wl, "rate_per_s": rate},

@@ -1,18 +1,21 @@
 """Closed loop of bulk jobs: one client submits a job of ``job_series``
-series, waits for every answer on the host, and submits the next, for
-the whole window. Job k is the k-th block of ``job_series`` rows of the
-query pool, cycling through the pool."""
+requests (series, or prompts of a token pool), waits for every answer on
+the host, and submits the next, for the whole window. Job k is the k-th
+block of ``job_series`` rows of the request pool, cycling through the
+pool (``perfbench/bench/pools.py`` says what a pool's rows are)."""
 from __future__ import annotations
 
 import time
 
 import numpy as np
 
+from perfbench.bench import pools
+
 
 def _job(pool, wl, k):
     J = int(wl["job_series"])
-    lo = (k % (pool.shape[0] // J)) * J
-    return lo, pool[lo:lo + J]
+    lo = (k % (pools.size(pool) // J)) * J
+    return lo, pools.rows(pool, lo, lo + J)
 
 
 def warm(program, pool, wl, seed) -> None:
@@ -35,7 +38,7 @@ def drive(program, pool, wl, seconds: float, seed: int) -> dict:
         # a step may answer fewer series than it was given: the first
         # ones, the rest never
         rows.append(np.arange(lo, lo + len(next(iter(a.values())))))
-        batch.append(Q.shape[0])
+        batch.append(pools.size(Q))
         k += 1
     window_s = time.perf_counter() - t0
     return {"window_s": window_s, "attempted": sum(batch),

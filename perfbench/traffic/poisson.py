@@ -12,7 +12,7 @@ import time
 import numpy as np
 import torch
 
-from .two_patterns import ARRIVALS, seed_rng
+from perfbench.bench.seeds import ARRIVALS, seed_rng
 
 DRAIN_S = 60.0
 

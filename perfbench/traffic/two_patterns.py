@@ -6,10 +6,20 @@ each series z-normalised as the UCR archive stores it), so the series a
 cell runs on cannot change under a later change of the program. The
 UCR archive's own TwoPatterns files are not in the repository; each
 configuration says so under ``assumed``.
+
+The data source of every configuration that names none (``"data"``):
+``cell_data`` makes the host arrays, ``on_device`` what the program is
+set up with and the pool its requests are cut from.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+# the seed's streams, kept importable from here for the callers that drew
+# them from this module
+from perfbench.bench.seeds import (ARRIVALS, POOL, SAMPLE, TRAIN,  # noqa: F401
+                                   seed_rng)
 
 
 def _znorm(X: np.ndarray) -> np.ndarray:
@@ -35,18 +45,6 @@ def two_patterns(n: int, T: int, rng: np.random.Generator):
     return _znorm(X[order]), y[order].astype(np.int32)
 
 
-def seed_rng(seed: int, stream: int) -> np.random.Generator:
-    """A numpy generator for one use (``stream``) of the run's seed; any
-    whole number, negative or past 64 bits, is a valid seed."""
-    return np.random.default_rng([int(seed) % (1 << 64), int(stream)])
-
-
-# the streams of a seed: the train split (of the configuration's
-# ``train_seed``), the query pool, the arrivals, and the sample the
-# comparison judges (of the run's seed)
-TRAIN, POOL, ARRIVALS, SAMPLE = range(4)
-
-
 def cell_data(cfg: dict, pool: int, seed: int) -> dict:
     """The train split of configuration ``cfg``, one fixed draw (its
     ``train_seed``) as a deployment's split is fixed, and a query pool of
@@ -58,3 +56,12 @@ def cell_data(cfg: dict, pool: int, seed: int) -> dict:
     X, y = two_patterns(n_train, T, seed_rng(cfg["train_seed"], TRAIN))
     P, yp = two_patterns(pool, T, seed_rng(seed, POOL))
     return {"X_train": X, "y_train": y, "pool": P, "y_pool": yp}
+
+
+def on_device(data: dict, device) -> tuple:
+    """(the arguments of ``Program.setup``, the request pool) on
+    ``device``: the train split's series and labels, and the pool's
+    series as one float32 tensor."""
+    X = torch.as_tensor(data["X_train"], device=device)
+    pool = torch.as_tensor(data["pool"], device=device)
+    return (X, data["y_train"]), pool
