@@ -14,6 +14,7 @@ from .pixtral_12b import CONFIG as PIXTRAL_12B
 from .falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 from .jamba_v01_52b import CONFIG as JAMBA_52B
 from .deepseek_v2_lite_16b import CONFIG as DEEPSEEK_V2_LITE
+from .deepseek_v2_lite import CONFIG as DEEPSEEK_V2_LITE_PUBLISHED
 from .deepseek_v2_236b import CONFIG as DEEPSEEK_V2_236B
 from .gemma3_12b import CONFIG as GEMMA3_12B
 from .yi_6b import CONFIG as YI_6B
@@ -21,13 +22,19 @@ from .minicpm_2b import CONFIG as MINICPM_2B
 from .gemma3_4b import CONFIG as GEMMA3_4B
 from .whisper_medium import CONFIG as WHISPER_MEDIUM
 
-REGISTRY = {c.name: c for c in [
+# the JAX package's architectures, mirrored field for field (the parity
+# tests walk ``ARCH_IDS``)
+_MIRRORED = [
     PIXTRAL_12B, FALCON_MAMBA_7B, JAMBA_52B, DEEPSEEK_V2_LITE,
     DEEPSEEK_V2_236B, GEMMA3_12B, YI_6B, MINICPM_2B, GEMMA3_4B,
     WHISPER_MEDIUM,
-]}
+]
+# published checkpoints the port serves with no simplification
+_PUBLISHED = [DEEPSEEK_V2_LITE_PUBLISHED]
 
-ARCH_IDS = tuple(REGISTRY)
+REGISTRY = {c.name: c for c in _MIRRORED + _PUBLISHED}
+
+ARCH_IDS = tuple(c.name for c in _MIRRORED)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -44,7 +51,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         cfg,
         name=cfg.name + "-smoke",
         d_model=64,
-        n_layers=len(cfg.pattern),       # one group
+        n_layers=cfg.n_dense_lead + len(cfg.pattern),   # one group
         n_heads=scale_heads,
         n_kv_heads=kv,
         head_dim=16,

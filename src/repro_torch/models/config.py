@@ -11,6 +11,16 @@ A model is a stack of ``n_groups`` identical *groups*; each group is a static
 
 Dense nets have pattern length 1; gemma3 uses a 6-layer (5 local + 1 global)
 pattern; jamba an 8-layer (7 mamba + 1 attn, alternating MoE) pattern.
+
+``PublishedConfig`` adds what a published checkpoint's serving path needs
+and the mirrored configurations leave out: ``n_dense_lead`` leading layers
+of the pattern's first mixer with a dense MLP of width ``d_ff`` before the
+groups, YaRN-scaled RoPE for MLA (``Yarn``), and dropless routing with the
+top-k weights renormalised or not. These are fields of the
+subclass only, so ``dataclasses.asdict`` of a ``ModelConfig`` stays the
+JAX package's; ``ModelConfig`` reads them as class attributes at their
+defaults, which change nothing. An untied head is ``tie_embeddings``
+False (every mirrored configuration is tied).
 """
 from __future__ import annotations
 
@@ -24,6 +34,21 @@ class LayerSpec:
     ffn: str = "mlp"               # mlp | moe | none
     window: Optional[int] = None   # sliding-window size for local attention
     rope_theta: float = 10_000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN RoPE scaling (DeepSeek-V2's ``rope_scaling`` of type "yarn"):
+    frequencies interpolated by ``factor`` below the correction range of
+    ``beta_fast`` / ``beta_slow`` rotations over ``original`` positions,
+    and the softmax scaled by ``mscale(factor, mscale_all_dim) ** 2``.
+    The published ``mscale`` equals ``mscale_all_dim``, so the rotation
+    keeps its amplitude (their ratio)."""
+    factor: float
+    original: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +89,25 @@ class ModelConfig:
     sub_quadratic: bool = False    # eligible for long_500k
     tie_embeddings: bool = True
 
+    # ``PublishedConfig``'s fields at their defaults (class attributes, not
+    # fields: see the module's docstring)
+    n_dense_lead = 0
+    rope_yarn = None
+    moe_dropless = False
+    moe_renorm = True
+
     @property
     def n_groups(self) -> int:
-        assert self.n_layers % len(self.pattern) == 0, (
-            f"{self.name}: n_layers {self.n_layers} not a multiple of "
-            f"pattern {len(self.pattern)}")
-        return self.n_layers // len(self.pattern)
+        n = self.n_layers - self.n_dense_lead
+        assert n % len(self.pattern) == 0, (
+            f"{self.name}: n_layers {self.n_layers} less {self.n_dense_lead} "
+            f"leading not a multiple of pattern {len(self.pattern)}")
+        return n // len(self.pattern)
+
+    @property
+    def lead_spec(self) -> LayerSpec:
+        """A leading dense layer: the pattern's first mixer, a dense MLP."""
+        return dataclasses.replace(self.pattern[0], ffn="mlp")
 
     @property
     def d_inner(self) -> int:      # mamba inner width
@@ -90,19 +128,30 @@ class ModelConfig:
         return int(total)
 
 
+@dataclasses.dataclass(frozen=True)
+class PublishedConfig(ModelConfig):
+    """A published checkpoint's configuration, with the serving-path
+    fields the mirrored configurations lack (module docstring)."""
+    n_dense_lead: int = 0          # first_k_dense_replace
+    rope_yarn: Optional[Yarn] = None
+    moe_dropless: bool = False     # no capacity: every assignment is computed
+    moe_renorm: bool = True        # norm_topk_prob
+
+
 def _count(cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     counts = {"embed": cfg.vocab * d, "moe_routed": 0}
     if not cfg.tie_embeddings:
         counts["unembed"] = cfg.vocab * d
     n_attn = n_mla = n_mamba = n_mlp = n_moe = 0
-    for g in range(cfg.n_groups):
-        for spec in cfg.pattern:
-            n_attn += spec.mixer == "attn"
-            n_mla += spec.mixer == "mla"
-            n_mamba += spec.mixer == "mamba"
-            n_mlp += spec.ffn == "mlp"
-            n_moe += spec.ffn == "moe"
+    specs = [cfg.lead_spec] * cfg.n_dense_lead \
+        + list(cfg.pattern) * cfg.n_groups
+    for spec in specs:
+        n_attn += spec.mixer == "attn"
+        n_mla += spec.mixer == "mla"
+        n_mamba += spec.mixer == "mamba"
+        n_mlp += spec.ffn == "mlp"
+        n_moe += spec.ffn == "moe"
     counts["attn"] = n_attn * (d * cfg.n_heads * hd          # wq
                                + 2 * d * cfg.n_kv_heads * hd  # wk, wv
                                + cfg.n_heads * hd * d)        # wo

@@ -24,6 +24,7 @@ such flag. At their defaults the flags change nothing.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -64,7 +65,8 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-         pair_offset: int = 0, half_total: Optional[int] = None):
+         pair_offset: int = 0, half_total: Optional[int] = None,
+         freqs: Optional[torch.Tensor] = None):
     """Interleaved (rotate-every-two) RoPE: pairs are (2i, 2i + 1), not the
     half-split layout. Frequencies and angles in float32, the result cast
     back to ``x``'s dtype. x: (..., S, H, hd); positions: (..., S).
@@ -72,13 +74,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     A block of head_dim (tensor parallelism over it, ``attn_shard=
     "head_dim"``) holds pairs ``pair_offset ..`` of a head of
     ``half_total`` pairs; interleaving keeps every pair inside one
-    block, and each pair gets the frequency of its place in the head."""
+    block, and each pair gets the frequency of its place in the head.
+    ``freqs`` (hd / 2 float32 values, ``yarn_freqs``) replaces the
+    frequencies of ``theta``."""
     hd = x.shape[-1]
     half = hd // 2
     total = half if half_total is None else half_total
-    exps = -torch.arange(pair_offset, pair_offset + half,
-                         dtype=torch.float32, device=x.device) / total
-    freqs = torch.pow(theta, exps)          # float32: theta ** exps
+    if freqs is None:
+        exps = -torch.arange(pair_offset, pair_offset + half,
+                             dtype=torch.float32, device=x.device) / total
+        freqs = torch.pow(theta, exps)      # float32: theta ** exps
     ang = positions[..., :, None, None].to(torch.float32) * freqs
     cos, sin = torch.cos(ang), torch.sin(ang)
     x2 = x.reshape(x.shape[:-1] + (half, 2))
@@ -86,6 +91,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     re = xe * cos - xo * sin
     ro = xe * sin + xo * cos
     return torch.stack([re, ro], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 mscale ln(factor) + 1`` (1 at factor
+    <= 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(yarn, dim: int, base: float, device) -> torch.Tensor:
+    """The dim / 2 float32 RoPE frequencies of YaRN (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``): ``base ** (-2i / dim)`` above the
+    correction range of ``yarn.beta_fast`` rotations over
+    ``yarn.original`` positions, divided by ``yarn.factor`` below that of
+    ``yarn.beta_slow``, and a linear ramp between."""
+    def corr(rot):
+        return dim * math.log(yarn.original / (rot * 2 * math.pi)) / (
+            2 * math.log(base))
+
+    lo = max(math.floor(corr(yarn.beta_fast)), 0)
+    hi = min(math.ceil(corr(yarn.beta_slow)), dim - 1)
+    hi = hi + 0.001 if lo == hi else hi
+    extra = 1.0 / base ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=device) / dim)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - lo) / (hi - lo), 0, 1)
+    return extra / yarn.factor * ramp + extra * (1.0 - ramp)
 
 
 def scale_in(x: torch.Tensor, scale: float) -> torch.Tensor:

@@ -4,6 +4,12 @@ architectures (the port of ``repro.models.lm``).
 Parameter pytree, the reference's names and layout:
   { "embed": (V, d), "final_norm": (d,),
     "groups": [ per-pattern-position dict, every leaf stacked (G, ...) ] }
+A ``PublishedConfig`` may add "unembed": (V, d), an untied head
+(``tie_embeddings`` False), and "lead": one dict of the leading dense
+layers' leaves stacked (n_dense_lead, ...), run before the groups; its
+decode cache then starts with the leading layers' entry (stacked the
+same way), before the pattern positions'. Those fields, and dropless
+routing, run on one device: under a layout they raise (``one_device``).
 
 Entry points (``ctx`` an ``lm.Ctx``, None for one device):
   train_loss(params, batch, cfg, ctx=None)         -> scalar loss
@@ -41,6 +47,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import trace
 from repro_torch.launch.mesh import (all_gather_dim, all_reduce_, copy_to,
                                      gather_from, local_shape, local_slice,
                                      reduce_from, sharded_dims)
@@ -50,7 +57,8 @@ from .config import LayerSpec, ModelConfig
 from .flash import flash_attention
 from .layers import (FLAGS, acc_dtype, attention, chunk_bias,
                      chunked_cross_entropy, gated_mlp, kv_chunk_len,
-                     online_softmax, rematerialize, rms_norm, rope, scale_in)
+                     online_softmax, rematerialize, rms_norm, rope, scale_in,
+                     yarn_freqs, yarn_mscale)
 from .mamba import init_mamba_state, mamba_decode_step, mamba_mixer
 from .moe import moe_ffn
 
@@ -196,12 +204,31 @@ def stack_schema(sch: Dict[str, tuple], n: int) -> Dict[str, tuple]:
 def model_schema(cfg: ModelConfig):
     """Full-pytree schema {path: (shape, scale, pspec)}, mirroring the
     params."""
-    return {
-        "embed": ((cfg.vocab, cfg.d_model), 0.02, ("model", None)),
-        "final_norm": ((cfg.d_model,), 0.0, (None,)),
-        "groups": [stack_schema(layer_schema(cfg, spec), cfg.n_groups)
-                   for spec in cfg.pattern],
-    }
+    out = {"embed": ((cfg.vocab, cfg.d_model), 0.02, ("model", None))}
+    if not cfg.tie_embeddings:
+        out["unembed"] = ((cfg.vocab, cfg.d_model), 0.02, ("model", None))
+    out["final_norm"] = ((cfg.d_model,), 0.0, (None,))
+    if cfg.n_dense_lead:
+        out["lead"] = stack_schema(layer_schema(cfg, cfg.lead_spec),
+                                   cfg.n_dense_lead)
+    out["groups"] = [stack_schema(layer_schema(cfg, spec), cfg.n_groups)
+                     for spec in cfg.pattern]
+    return out
+
+
+def one_device(cfg: ModelConfig, layout) -> None:
+    """Raise where ``cfg`` uses a field the layouts do not support yet
+    (leading dense layers, an untied head, dropless routing) and a
+    layout is given."""
+    if layout is None:
+        return
+    for field, on in (("n_dense_lead", cfg.n_dense_lead),
+                      ("tie_embeddings", not cfg.tie_embeddings),
+                      ("moe_dropless", cfg.moe_dropless)):
+        if on:
+            raise NotImplementedError(
+                f"{cfg.name}: {field}={getattr(cfg, field)!r} runs on one "
+                f"device; no layout takes it yet")
 
 
 def map_schema(schema, fn):
@@ -211,6 +238,8 @@ def map_schema(schema, fn):
     for k, v in schema.items():
         if isinstance(v, list):
             out[k] = [{kk: fn(*vv) for kk, vv in g.items()} for g in v]
+        elif isinstance(v, dict):
+            out[k] = {kk: fn(*vv) for kk, vv in v.items()}
         else:
             out[k] = fn(*v)
     return out
@@ -244,6 +273,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=DTYPE,
     Under a ``launch.mesh.Layout`` each leaf is drawn whole and this rank
     keeps its block (``launch.mesh.local_slice``), so every rank draws the
     same values and a sharded model is the slices of the unsharded one."""
+    one_device(cfg, layout)
     return init_from_schema(model_schema(cfg), generator, dtype, layout)
 
 
@@ -265,6 +295,7 @@ def abstract_params(cfg: ModelConfig, dtype=DTYPE, layout=None):
     under ``layout`` (the whole leaf without one), on the current device:
     fake tensors under ``FakeTensorMode`` (the dry run), real ones
     otherwise. Nothing is drawn (the reference's ``abstract_params``)."""
+    one_device(cfg, layout)
     return abstract_from_schema(model_schema(cfg), dtype, layout)
 
 
@@ -601,6 +632,25 @@ def _apply_attn(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
     return x + out, piece
 
 
+def mla_scale(cfg: ModelConfig) -> float:
+    """MLA's softmax scale: (nope + rope head dim) ** -0.5, times
+    ``yarn_mscale(factor, mscale_all_dim) ** 2`` under YaRN."""
+    sc = (cfg.head_dim + cfg.rope_head_dim) ** -0.5
+    y = cfg.rope_yarn
+    if y is not None and y.mscale_all_dim:
+        sc = sc * yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return sc
+
+
+def _mla_rope(t, positions, cfg: ModelConfig):
+    """RoPE of MLA's rope part at base 10,000, under YaRN at its
+    frequencies (``layers.yarn_freqs``)."""
+    y = cfg.rope_yarn
+    freqs = None if y is None else yarn_freqs(y, t.shape[-1], 10_000.0,
+                                              t.device)
+    return rope(t, positions, 10_000.0, freqs=freqs)
+
+
 def _mla_qkv(xn, p, cfg: ModelConfig, positions, ctx: Ctx = NO_CTX):
     """(q_nope, q_rope, ckv, krope): the queries of this rank's heads (the
     replicated low-rank or normed input enters them through
@@ -613,9 +663,9 @@ def _mla_qkv(xn, p, cfg: ModelConfig, positions, ctx: Ctx = NO_CTX):
         xq = ctx.copy(xn)
         q_nope = torch.einsum("bsd,dhk->bshk", xq, p["w_q"])
         q_rope = torch.einsum("bsd,dhk->bshk", xq, p["w_q_rope"])
-    q_rope = rope(q_rope, positions, 10_000.0)
+    q_rope = _mla_rope(q_rope, positions, cfg)
     ckv = rms_norm(xn @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
-    krope = rope((xn @ p["w_krope"])[:, :, None, :], positions, 10_000.0)
+    krope = _mla_rope((xn @ p["w_krope"])[:, :, None, :], positions, cfg)
     return q_nope, q_rope, ckv, krope[:, :, 0, :]
 
 
@@ -626,7 +676,7 @@ def _mla_decode(x, p, cfg, q_nope, q_rope, ckv, krope, cache, pos, ctx,
     gathered to every head, each rank scores its block, and the softmax
     and its product with ckv are merged over the ranks before the rank's
     heads go through ``w_uv`` and ``wo``."""
-    H, hd, rhd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    H = cfg.n_heads
     group, n, r = ctx.split_of(cspec, 2)
     q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
     if group is None:
@@ -639,9 +689,12 @@ def _mla_decode(x, p, cfg, q_nope, q_rope, ckv, krope, cache, pos, ctx,
     ckv_c, kr_c = cache["ckv"], cache["krope"]
     s = (torch.einsum("bshr,btr->bhst", q_c, ckv_c)
          + torch.einsum("bshk,btk->bhst", q_rope, kr_c)
-         ).float() * (hd + rhd) ** -0.5
+         ).float() * mla_scale(cfg)
     kv_pos = r * ckv_c.shape[1] + torch.arange(ckv_c.shape[1],
                                                device=x.device)
+    if trace.ON:
+        trace.count("mla.cache_rows", torch.clamp(
+            pos + 1, max=ckv_c.shape[1] * n) * ckv_c.shape[0])
     s = torch.where(kv_pos[None, None, None, :] <= pos, s,
                     torch.full_like(s, -1e30))
     if group is None:
@@ -669,8 +722,13 @@ def _apply_mla(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
     its heads (``w_uq`` / ``w_q``, ``w_uk``, ``w_uv`` split over heads;
     the down-projections and norms replicated, their outputs entering
     through ``ctx.copy``) and ``wo``'s row-split product is summed."""
+    with trace.span("mla"):
+        return _mla(x, p, cfg, cache, pos, ctx, cspec)
+
+
+def _mla(x, p, cfg: ModelConfig, cache, pos, ctx: Ctx, cspec):
     B, S, d = x.shape
-    hd, rhd = cfg.head_dim, cfg.rope_head_dim
+    rhd = cfg.rope_head_dim
     xn = rms_norm(x, p["norm1"], cfg.norm_eps)
     decode = cache is not None and pos is not None
     positions = (positions_at(pos, S) if decode
@@ -688,7 +746,7 @@ def _apply_mla(x, p, spec: LayerSpec, cfg: ModelConfig, cache=None,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, krope_in[:, :, None, :].expand(B, S, Hl, rhd)],
                   dim=-1)
-    o = attend(q, k, v, True, None, (hd + rhd) ** -0.5)
+    o = attend(q, k, v, True, None, mla_scale(cfg))
     out = torch.einsum("bshv,hvd->bsd", o.to(x.dtype), p["wo"])
     return x + ctx.reduce(out), {"ckv": ckv, "krope": krope}
 
@@ -705,19 +763,22 @@ def _apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx = NO_CTX):
     xn = rms_norm(x, p["norm2"], cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "mlp":
-        return x + ctx.reduce(gated_mlp(ctx.copy(xn), p["w_gate"], p["w_up"],
-                                        p["w_down"])), zero
+        with trace.span("mlp"):
+            return x + ctx.reduce(gated_mlp(ctx.copy(xn), p["w_gate"],
+                                            p["w_up"], p["w_down"])), zero
     B, S, _ = x.shape
     use_ep = ctx.layout is not None and ctx.dp_divides(B * S * ctx.n_dp)
     moe_out, aux = moe_ffn(xn, p, n_experts=cfg.n_experts, top_k=cfg.top_k,
                            capacity_factor=cfg.capacity_factor,
                            layout=ctx.layout if use_ep else None,
                            ep_axis="data" if use_ep else None,
-                           tp_group=ctx.tp_group)
+                           tp_group=ctx.tp_group,
+                           dropless=cfg.moe_dropless, renorm=cfg.moe_renorm)
     out = x + moe_out
     if cfg.n_shared_experts:
-        out = out + ctx.reduce(gated_mlp(ctx.copy(xn), p["sh_gate"],
-                                         p["sh_up"], p["sh_down"]))
+        with trace.span("moe.shared"):
+            out = out + ctx.reduce(gated_mlp(ctx.copy(xn), p["sh_gate"],
+                                             p["sh_up"], p["sh_down"]))
     return out, aux
 
 
@@ -835,7 +896,12 @@ def forward_hidden(params, tokens, cfg: ModelConfig, patches=None,
     whole on every model rank. Under ``FLAGS["remat_policy"] ==
     "save_tp"`` the recompute reuses the group's all-reduced outputs."""
     ctx = NO_CTX if ctx is None else ctx
+    one_device(cfg, ctx.layout)
     x = _inputs(params, tokens, patches, ctx)
+    for g in range(cfg.n_dense_lead):
+        x = rematerialize(lambda x, p: _apply_layer(x, p, cfg.lead_spec,
+                                                    cfg)[0],
+                          x, group_slice(params["lead"], g))
 
     def group_body(x, gps):
         aux_t = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -870,16 +936,23 @@ def train_loss(params, batch, cfg: ModelConfig, ctx=None,
     if patches is not None:
         x = x[:, patches.shape[1]:]   # loss on text positions only
     mask = (tgt >= 0).float()
-    loss = chunked_cross_entropy(x, params["embed"], torch.clamp_min(tgt, 0),
-                                 mask, ctx=ctx)
+    loss = chunked_cross_entropy(x, head_weight(params),
+                                 torch.clamp_min(tgt, 0), mask, ctx=ctx)
     return loss + aux_weight * aux
 
 
+def head_weight(params):
+    """The output head's (V, d) weight: "unembed" where the model has an
+    untied head, else the tied embedding."""
+    return params.get("unembed", params["embed"])
+
+
 def logits_of(params, h, ctx=None):
-    """Logits of hidden states: a bf16 product with the tied embedding,
-    cast to float32; over the model ranks each rank's vocabulary block
-    gathered whole."""
-    out = (h @ params["embed"].T).float()
+    """Logits of hidden states: a bf16 product with the head's weight
+    (``head_weight``), cast to float32; over the model ranks each rank's
+    vocabulary block gathered whole."""
+    with trace.span("lm.head"):
+        out = (h @ head_weight(params).T).float()
     if ctx is None or ctx.tp == 1:
         return out
     return ctx.gather(out, out.dim() - 1)
@@ -899,10 +972,13 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=DTYPE, *,
     """Decode cache on ``device``: per pattern position a dict of (G, ...)
     leaves; a windowed layer's ring holds ``min(window, S_max)`` rows.
     Under ``layout`` this rank's block of each leaf, as
-    ``launch.shapes.cache_pspecs`` places it."""
+    ``launch.shapes.cache_pspecs`` places it. Leading dense layers put
+    their entry first, stacked (n_dense_lead, ...)."""
+    one_device(cfg, layout)
     caches = []
-    G = cfg.n_groups
     specs = _cache_specs(cfg, B, Ctx(layout))
+    stacks = [(cfg.lead_spec, cfg.n_dense_lead)] if cfg.n_dense_lead else []
+    stacks += [(spec, cfg.n_groups) for spec in cfg.pattern]
 
     def z(li, name, *shape, dt=dtype):
         shape = (G,) + shape
@@ -910,7 +986,7 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=DTYPE, *,
             shape = local_shape(shape, specs[li][name], layout)
         return torch.zeros(shape, dtype=dt, device=device)
 
-    for li, spec in enumerate(cfg.pattern):
+    for li, (spec, G) in enumerate(stacks):
         if spec.mixer == "attn":
             S_c = min(spec.window, S_max) if spec.window else S_max
             caches.append({n: z(li, n, B, S_c, cfg.n_kv_heads, cfg.head_dim)
@@ -948,14 +1024,26 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, ctx=None):
     Under ``ctx``'s layout ``cache`` is this rank's block of the cache
     ``init_cache(..., layout=)`` places, ``token`` the global batch, and
     the logits whole on every rank."""
-    ctx = NO_CTX if ctx is None else ctx
+    with trace.span("lm.decode"):
+        return _decode_step(params, cache, token, pos, cfg,
+                            NO_CTX if ctx is None else ctx)
+
+
+def _decode_step(params, cache, token, pos, cfg: ModelConfig, ctx: Ctx):
+    one_device(cfg, ctx.layout)
     pos = as_pos(pos, token.device)
     specs = _cache_specs(cfg, token.shape[0], ctx)
     token, rows_group = _decode_rows(token, ctx, specs)
     x = embed_tokens(params["embed"], token, act_dtype(params), ctx)
+    lead = 1 if cfg.n_dense_lead else 0
+    for g in range(cfg.n_dense_lead):
+        x, _, _ = _apply_layer(x, group_slice(params["lead"], g),
+                               cfg.lead_spec, cfg,
+                               cache=group_slice(cache[0], g), pos=pos)
     for g in range(cfg.n_groups):
         for li, spec in enumerate(cfg.pattern):
-            gc = group_slice(cache[li], g) if cache[li] else None
+            c = cache[lead + li]
+            gc = group_slice(c, g) if c else None
             x, _, _ = _apply_layer(x, group_slice(params["groups"][li], g),
                                    spec, cfg, cache=gc, pos=pos, ctx=ctx,
                                    cspec=None if specs is None else
@@ -997,9 +1085,14 @@ def prefill(params, tokens, cfg: ModelConfig, S_cache: int, patches=None,
     Under ``ctx``'s layout the tokens are the global batch and the cache
     this rank's block of it by ``launch.shapes.cache_pspecs`` (its
     sequence split over the ranks; the batch over the data ranks where
-    they divide it)."""
-    del S_cache
-    ctx = NO_CTX if ctx is None else ctx
+    they divide it). Leading dense layers put their entry first."""
+    with trace.span("lm.prefill"):
+        return _prefill(params, tokens, cfg, patches,
+                        NO_CTX if ctx is None else ctx)
+
+
+def _prefill(params, tokens, cfg: ModelConfig, patches, ctx: Ctx):
+    one_device(cfg, ctx.layout)
     specs = _cache_specs(cfg, tokens.shape[0], ctx)
     tokens, rows_group = _decode_rows(tokens, ctx, specs)
     if rows_group is not None and patches is not None:
@@ -1007,6 +1100,11 @@ def prefill(params, tokens, cfg: ModelConfig, S_cache: int, patches=None,
     x = _inputs(params, tokens, patches, ctx)
     S = x.shape[1]
     mode = _tp_mode(cfg, ctx)
+    lead = []
+    for g in range(cfg.n_dense_lead):
+        x, piece, _ = _apply_layer(x, group_slice(params["lead"], g),
+                                   cfg.lead_spec, cfg)
+        lead.append(piece)
     per_group = [[] for _ in cfg.pattern]
     for g in range(cfg.n_groups):
         for li, spec in enumerate(cfg.pattern):
@@ -1020,7 +1118,8 @@ def prefill(params, tokens, cfg: ModelConfig, S_cache: int, patches=None,
                     piece = {k: v[:, -w:] for k, v in piece.items()}
             per_group[li].append(piece or {})
     cache = [{k: torch.stack([pg[k] for pg in pieces])
-              for k in pieces[0]} for pieces in per_group]
+              for k in pieces[0]} for pieces in ([lead] if lead else [])
+             + per_group]
     if specs is not None:
         # the sequence (attention, MLA) is cut here; a Mamba state is
         # already this rank's block of d_inner

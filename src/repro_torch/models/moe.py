@@ -5,6 +5,14 @@ of ``capacity`` rows in arrival order (tokens past capacity drop, GShard
 style), run through the experts' gated FFNs, and combined with the
 renormalised router weights.
 
+``dropless=True`` (a published checkpoint's inference, ``PublishedConfig.
+moe_dropless``; local path only) computes every assignment: the (token,
+expert) pairs are sorted by expert and each expert's run of rows goes
+through one grouped product (``torch._grouped_mm`` over device-side
+offsets), with no capacity buffer and no read of the counts on the host;
+it takes the router's logits in float32 from float32 operands, as the
+published modelling code does. ``renorm`` is ``norm_topk_prob``.
+
 ``ep_axis=None`` is the local path: every expert on this device.
 ``ep_axis="data"`` with a ``launch.mesh.Layout`` is the reference's
 expert-parallel ``run(..., n_data, e_div)``: the tokens are this rank's
@@ -31,21 +39,24 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.launch.mesh import copy_to, exchange, reduce_from
 from .layers import rematerialize
 
 
-def _router(x, w_router, top_k: int):
+def _router(x, w_router, top_k: int, renorm: bool = True):
     """x: (N, d) -> (ids (N, k), weights (N, k), aux load-balance loss).
 
     The top-k takes the lower expert index first among equal
     probabilities (``lax.top_k``'s order), through a stable descending
-    sort; ``torch.topk`` leaves the order of ties unspecified."""
+    sort; ``torch.topk`` leaves the order of ties unspecified. ``renorm``
+    makes the k weights sum to 1; the weights come back in x's dtype."""
     logits = (x @ w_router).float()                      # (N, E)
     probs = torch.softmax(logits, dim=-1)
     w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, ids = w[:, :top_k], ids[:, :top_k]
-    w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
+    if renorm:
+        w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
     # Switch-style aux loss: E * <f_e * p_e>
     E = w_router.shape[1]
     fe = F.one_hot(ids[:, 0], E).float().mean(dim=0)
@@ -84,6 +95,46 @@ def _expert_ffn(xe, w_gate, w_up, w_down):
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, w_gate))
     h = h * torch.einsum("ecd,edf->ecf", xe, w_up)
     return torch.einsum("ecf,efd->ecd", h, w_down)
+
+
+def _expert_rows(ids, n_experts: int) -> torch.Tensor:
+    """Rows an expert: (E,) int64 counts of ``ids``, on the device
+    (``torch.bincount`` reads its input's max on the host)."""
+    flat = ids.reshape(-1)
+    return torch.zeros(n_experts, dtype=torch.long,
+                       device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
+def _count_routing(ids, n_experts: int) -> None:
+    """The recorder's routing counters of one layer-step: assignments
+    (a host int from the shape), and the most rows any expert got and the
+    experts given any, as device tensors."""
+    rows = _expert_rows(ids, n_experts)
+    trace.count("moe.assignments", ids.numel())
+    trace.count("moe.expert_rows_max", rows.max())
+    trace.count("moe.experts_touched", (rows > 0).sum())
+
+
+def _dropless(xf, ids, wts, w_gate, w_up, w_down):
+    """Every assignment's expert output, weighted and summed per token.
+    xf: (N, d); ids / wts: (N, k) (wts float32); expert weights (E, d, ff)
+    / (E, ff, d). The N k rows are sorted by expert (stable: a token's
+    rows keep their order) and each expert's run goes through one grouped
+    product; the offsets stay on the device."""
+    N, k = ids.shape
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    ends = torch.cumsum(_expert_rows(ids, w_gate.shape[0]),
+                        0).to(torch.int32)
+    with trace.span("moe.experts"):
+        xs = xf[order // k]
+        h = F.silu(torch._grouped_mm(xs, w_gate, offs=ends)) \
+            * torch._grouped_mm(xs, w_up, offs=ends)
+        ys = torch._grouped_mm(h, w_down, offs=ends)
+        y = torch.empty_like(ys)
+        y[order] = ys
+        return (y.reshape(N, k, -1).float() * wts[..., None]).sum(dim=1)
 
 
 def capacity(capacity_factor: float, top_k: int, n_tokens: int,
@@ -141,14 +192,16 @@ def _ep_run(xl, router, wg, wu, wd, *, n_experts, top_k, capacity_factor,
 
 def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
             capacity_factor: float, layout=None,
-            ep_axis: Optional[str] = None, tp_group=None
+            ep_axis: Optional[str] = None, tp_group=None,
+            dropless: bool = False, renorm: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN. x: (B, S, d) -> (out, aux_loss (scalar)).
 
     params: router (d, E), gate / up (E, d, ff), down (E, ff, d); under
     ``ep_axis`` the expert leaves hold this rank's E / n experts and the
     aux loss is this rank's tokens'; under ``tp_group`` their ff dimension
-    is this rank's block.
+    is this rank's block. ``dropless`` / ``renorm``: the module's
+    docstring (``dropless`` on the local path, one rank).
     """
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
@@ -168,7 +221,19 @@ def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
                                  params["up"], params["down"])
         return out.reshape(B, S, d), aux
     N = xf.shape[0]
-    ids, wts, aux = _router(xf, params["router"], top_k)
+    if dropless:
+        with trace.span("moe.route"):
+            ids, wts, aux = _router(xf.float(), params["router"].float(),
+                                    top_k, renorm)
+            if trace.ON:
+                _count_routing(ids, n_experts)
+        out = _dropless(xf, ids, wts, params["gate"], params["up"],
+                        params["down"])
+        return out.to(x.dtype).reshape(B, S, d), aux
+    # three arguments where renorm holds: tests/torch_train_helpers.py and
+    # chip_smoke.py wrap ``_router`` with that signature
+    routing = {} if renorm else {"renorm": False}
+    ids, wts, aux = _router(xf, params["router"], top_k, **routing)
     cap = capacity(capacity_factor, top_k, N, n_experts)
     buf, slot, valid = _pack(copy_to(xf, tp_group), ids, n_experts, cap)
     ye = _expert_ffn(buf, params["gate"], params["up"], params["down"])

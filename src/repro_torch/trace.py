@@ -22,6 +22,13 @@ waits for the device, unless it is given ``sync=device`` (set-up phases,
 whose spans then hold their phase's device work; the recorder must be
 on for that too).
 
+``enable(events=device)`` also marks each span on a CUDA device's
+current stream: a timing event recorded as the span opens and another as
+it closes, and ``snapshot()`` gives the span's ``device_ms``, the
+stream's milliseconds between the two marks (the work launched inside the
+span, and the stream's idle while it waited for the host there). Unlike
+a profiler session it loses nothing however late in a process it runs.
+
 ``count(name, value)`` adds an int, or a 0-d device tensor summed on
 its device with ``add_`` and read on the host only by ``snapshot()``.
 
@@ -39,6 +46,9 @@ import torch
 
 ON = False
 clock_ns = time.time_ns
+# the CUDA device whose stream the spans mark with timing events (None:
+# no events)
+_events = None
 
 _spans: list = []
 _ints: dict = {}
@@ -52,8 +62,14 @@ _OFF = contextlib.nullcontext()
 SPAN_KEYS = ("id", "parent", "job", "name", "start_ns", "end_ns")
 
 
+def _mark():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(_events))
+    return ev
+
+
 class _Span:
-    __slots__ = ("name", "sync", "id", "parent", "job", "start")
+    __slots__ = ("name", "sync", "id", "parent", "job", "start", "ev")
 
     def __init__(self, name: str, sync):
         self.name = name
@@ -69,6 +85,7 @@ class _Span:
         else:
             self.parent, self.job = None, self.id
         stack.append(self)
+        self.ev = None if _events is None else _mark()
         self.start = clock_ns()
         return self
 
@@ -78,7 +95,8 @@ class _Span:
         end = clock_ns()
         _open.stack.remove(self)
         _spans.append((self.id, self.parent, self.job, self.name,
-                       self.start, end))
+                       self.start, end)
+                      + (() if self.ev is None else ((self.ev, _mark()),)))
         return False
 
 
@@ -110,16 +128,32 @@ def count(name: str, value) -> None:
         _ints[name] = _ints.get(name, 0) + value
 
 
-def enable() -> None:
-    """Turn the recorder on (what it holds is kept)."""
-    global ON
+def enable(events=None) -> None:
+    """Turn the recorder on (what it holds is kept); ``events`` (a device)
+    marks the spans on its stream where it is a CUDA device."""
+    global ON, _events
     ON = True
+    _events = (events if events is not None
+               and torch.device(events).type == "cuda" else None)
+
+
+@contextlib.contextmanager
+def paused():
+    """The recorder off inside the block (a CUDA graph's capture, whose
+    launches run only at its replays) and back as it was after."""
+    global ON
+    was, ON = ON, False
+    try:
+        yield
+    finally:
+        ON = was
 
 
 def disable() -> None:
     """Turn the recorder off (what it holds is kept)."""
-    global ON
+    global ON, _events
     ON = False
+    _events = None
 
 
 def reset() -> None:
@@ -132,12 +166,18 @@ def reset() -> None:
 
 def snapshot() -> dict:
     """What the recorder holds: ``spans`` (dicts of ``SPAN_KEYS``, in the
-    order they ended), ``counts`` (name -> number; reads each device
-    counter once), ``launches`` (the kernels' launch counts) and
-    ``clock`` (the clock's name)."""
+    order they ended, and ``device_ms`` where the span was marked on a
+    stream: waits for its closing mark), ``counts`` (name -> number;
+    reads each device counter once), ``launches`` (the kernels' launch
+    counts) and ``clock`` (the clock's name)."""
     from repro_torch.kernels._build import launch_counts
     with _lock:
         spans = [dict(zip(SPAN_KEYS, s)) for s in _spans]
+        for d, s in zip(spans, _spans):
+            if len(s) > len(SPAN_KEYS):
+                ev0, ev1 = s[-1]
+                ev1.synchronize()
+                d["device_ms"] = ev0.elapsed_time(ev1)
         counts = dict(_ints)
         tensors = list(_tensors.items())
     for (name, _), acc in tensors:
